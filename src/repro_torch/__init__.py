@@ -1,0 +1,22 @@
+"""PyTorch/CUDA port of the Farview reproduction.
+
+A second package beside the JAX reference `repro`, mirroring it module for
+module (`repro_torch.core.client` <-> `repro.core.client`, ...). It imports
+torch and numpy only — never jax, never anything of `repro`. Entry points
+run on the CUDA card unless the caller passes `device="cpu"`; on the card
+every kernel on the request path is a hand-written CUDA kernel
+(`kernels/csrc/`), on the CPU its plain torch version runs instead.
+
+The verb API re-exported here is the rows-kind slice: selection,
+projection, smart addressing and CTR crypt over word tables.
+"""
+from repro_torch.core.client import (FViewNode, PendingRequest, QPair,
+                                     alloc_table_mem, close_connection,
+                                     farview_request, free_table_mem,
+                                     load_node_state, open_connection,
+                                     submit_request, table_read,
+                                     table_read_rows, table_write)
+from repro_torch.core.errors import (DeadlineExceededError, FarviewError,
+                                     NodeDeadError)
+from repro_torch.core.pipeline import PipelineResult, compile_pipeline
+from repro_torch.core.table import Column, FTable

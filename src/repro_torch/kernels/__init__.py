@@ -1,0 +1,1 @@
+# hand-written CUDA kernels, their plain torch versions, and the dispatch wrappers

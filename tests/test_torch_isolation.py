@@ -1,0 +1,62 @@
+"""The port stands alone: `src/repro_torch/` and `chip_smoke.py` import
+neither jax nor anything of the JAX package `repro`.
+
+Two checks: a subprocess imports `repro_torch`, runs one request on the
+CPU and then finds no `jax` and no `repro` module loaded; an AST scan of
+every port file (and of `chip_smoke.py`) finds no such import statement.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+_PROBE = """
+import sys
+import numpy as np
+import repro_torch as fv
+from repro_torch.core import operators as op
+node = fv.FViewNode(8 * 2**20, device="cpu")
+qp = fv.open_connection(node)
+ft = fv.alloc_table_mem(qp, fv.FTable("t", (fv.Column("a"), fv.Column("b")),
+                                      n_rows=64))
+fv.table_write(qp, ft, np.arange(128, dtype=np.float32).reshape(64, 2))
+res = fv.farview_request(qp, ft, (op.Select((op.Predicate("a", "<", 20.0),)),
+                                  op.Crypt((1, 2), 3, "post")))
+assert res.count == 10, res.count
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+
+
+def test_import_and_request_load_no_jax_and_no_repro():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax_and_no_repro(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
