@@ -283,8 +283,9 @@ class CompiledPipeline:
 
     def _gather_run(self, buf, pages, n_valid, row_ids, n_rows, row_words):
         if self._columnar_read():
-            work = fpool.gather_columns(buf, pages, n_rows, row_words,
-                                        tuple(self.proj_cols))
+            work = fpool.gather_columns(
+                buf, pages, n_rows, row_words,
+                _upload(self.proj_cols, torch.int64, buf.device))
             return self._body(work, n_valid, row_ids, narrowed=True)
         rows = fpool.gather_rows(buf, pages, n_rows, row_words)
         return self._body(rows, n_valid, row_ids, narrowed=False)
@@ -312,8 +313,8 @@ class CompiledPipeline:
         # -- smart addressing narrows columns (unless gathered narrowed) -----
         if self.smart and self.proj_cols is not None:
             if not narrowed:
-                work = torch.stack([work[..., c] for c in self.proj_cols],
-                                   dim=-1)
+                work = work[..., _upload(self.proj_cols, torch.int64,
+                                         work.device)]
             eff_sel_ops = self.sel_ops[self.proj_cols]
             eff_sel_vals = self.sel_vals[self.proj_cols]
             eff_proj = np.ones((len(self.proj_cols),), np.float32)

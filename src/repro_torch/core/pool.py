@@ -34,11 +34,12 @@ def gather_rows(buf: torch.Tensor, pages: torch.Tensor, n_rows: int,
 
 
 def gather_columns(buf: torch.Tensor, pages: torch.Tensor, n_rows: int,
-                   row_words: int, col_idx: tuple[int, ...]) -> torch.Tensor:
+                   row_words: int, cols: torch.Tensor) -> torch.Tensor:
     """Smart addressing (paper §5.2): only the projected columns' words
-    leave the gather. Returns (..., n_rows, len(col_idx))."""
+    leave the gather. cols: (k,) int64 column ids on buf's device.
+    Returns (..., n_rows, k)."""
     rows = gather_rows(buf, pages, n_rows, row_words)
-    return torch.stack([rows[..., c] for c in col_idx], dim=-1)
+    return rows[..., cols]
 
 
 @dataclass

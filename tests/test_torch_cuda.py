@@ -93,7 +93,9 @@ def test_flush_never_waits_for_the_card(card):
     sel = op.Select((op.Predicate("c1", "<", 0.1),))
     pipes = [(sel,), (op.SmartAddress(("c5", "c2")), sel),
              (op.Crypt((1, 2), 3, "pre"), op.Project(("c0",)), sel,
-              op.Crypt((4, 5), 6, "post"))]
+              op.Crypt((4, 5), 6, "post")),
+             (op.Crypt((1, 2), 3, "pre"), op.SmartAddress(("c3", "c1")),
+              sel)]
     torch.cuda.set_sync_debug_mode("error")
     try:
         reqs = [fv.submit_request(qp, ft, p) for p in pipes for qp in qps]
