@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--seed 0] [--rows-log2 25]
+    python3 chip_smoke.py [--seed 0]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -45,14 +45,21 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: 80 GB HBM3 at 3.35 TB/s
-# H100 SXM peak outside the tensor cores (float32, 67 TFLOP/s, NVIDIA's
-# data sheet), used for the cipher's 32-bit integer operations: the card's
-# integer pipes retire fewer, so the bound stays a lower bound
-ALU_OPS_PER_S = 67e12
-# Threefry-2x32 per counter block: 2 key adds, then 5 x (4 rounds of add,
-# shl, shr, or, xor + 3 key-injection adds) = 117; one block serves two
-# words, each also XORed once
-CIPHER_OPS_PER_WORD = 117 / 2 + 1
+# H100 SXM float32 peak outside the tensor cores (67 TFLOP/s, NVIDIA's data
+# sheet: 132 SMs x 128 lanes x 2 flops per FMA x 1.98 GHz), for the
+# selection's float compares
+FP32_OPS_PER_S = 67e12
+# 32-bit integer instructions: 64 INT32 lanes per SM (NVIDIA's H100
+# whitepaper), same SMs and clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The cipher's instructions per word, counted in the kernel's SASS
+# (`cuobjdump -sass` of the sm_90a build): per counter block 2 initial key
+# adds, 20 rounds of add + funnel-shift rotate + xor, 5 key injections of
+# 2 adds (the round constant folds into a three-input add) = 72; one block
+# serves two words, each XORed with its data word once. Index arithmetic
+# the kernel also issues is its own overhead, not the function's work.
+CIPHER_OPS_PER_WORD = 72 / 2 + 1
+ROWS_LOG2 = 25                # 2^25 rows x 8 f32 words = a 1 GiB table
 KEY_PRE, NONCE_PRE = (0x0BADF00D, 0x5EED5EED), 1234
 KEY_POST, NONCE_POST = (0x12345678, 0x9ABCDEF0), 99
 SEL_THRESHOLD = -1.2815516            # P(N(0,1) < t) = 0.10
@@ -62,8 +69,6 @@ N_CONNECTIONS = 4
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rows-log2", type=int, default=25,
-                    help="rows of the table (2^25 rows x 8 words = 1 GiB)")
     return ap.parse_args(argv)
 
 
@@ -160,14 +165,14 @@ def check_select_project(sp, gen, b, n, report):
     library_ms = cuda_ms(lambda: flat[mask])
     moved = 2 * table.numel() * 4 + b * 4           # rows in, rows + counts out
     compares = b * n                                # one predicate column
-    bound = max(moved / HBM_BYTES_PER_S, compares / ALU_OPS_PER_S) * 1e3
+    bound = max(moved / HBM_BYTES_PER_S, compares / FP32_OPS_PER_S) * 1e3
     return {"name": "select_project", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/select_project.cu",
             "replaces": "src/repro/kernels/select_project.py:78",
             "launches": None, "max_abs_err": float(err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": ("bytes" if moved / HBM_BYTES_PER_S
-                         >= compares / ALU_OPS_PER_S else "operations"),
+                         >= compares / FP32_OPS_PER_S else "operations"),
             "library_ms": library_ms,
             "shape": [b, n, 8]}
 
@@ -203,7 +208,7 @@ def check_ctr_crypt(ctr, gen, b, n_words, report):
         data, KEY_POST, NONCE_POST), reps=10, warmup=1)
     words = data.numel()
     t_bytes = 2 * words * 4 / HBM_BYTES_PER_S
-    t_ops = words * CIPHER_OPS_PER_WORD / ALU_OPS_PER_S
+    t_ops = words * CIPHER_OPS_PER_WORD / INT32_OPS_PER_S
     return {"name": "ctr_crypt", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ctr_crypt.cu",
             "replaces": "src/repro/kernels/ctr_crypt.py:76",
@@ -370,7 +375,7 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    n = 1 << args.rows_log2
+    n = 1 << ROWS_LOG2
     entries = [check_select_project(sp, gen, N_CONNECTIONS, n, report)]
     torch.cuda.empty_cache()
     entries.append(check_ctr_crypt(ctr, gen, N_CONNECTIONS, n * 8,

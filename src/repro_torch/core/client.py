@@ -40,7 +40,8 @@ import torch
 
 from repro_torch.core import operators as op_ir
 from repro_torch.core.errors import DeadlineExceededError, FarviewError, NodeDeadError  # noqa: F401,E501
-from repro_torch.core.pipeline import PipelineResult, compile_pipeline
+from repro_torch.core.pipeline import (PipelineResult, compile_pipeline,
+                                      resolve_device)
 from repro_torch.core.pool import PAGE_BYTES, FarPool
 from repro_torch.core.table import Column, FTable, WORD_BYTES
 
@@ -190,16 +191,6 @@ class PendingRequest:
         return self.result.finalize()
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise FarviewError(
-                "FViewNode(device=None) runs on the CUDA card and none is "
-                "available; pass device='cpu' to run the plain versions")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 class FViewNode:
     """One smart disaggregated memory node: a paged `FarPool` on `device`,
     a fixed set of dynamic regions, and the bucket-batched scheduler.
@@ -211,7 +202,7 @@ class FViewNode:
     def __init__(self, capacity_bytes: int = 64 * 2**20, *, n_regions: int = 6,
                  n_shards: int = 1, node_id: int = 0,
                  page_bytes: int = PAGE_BYTES, device=None):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "FViewNode")
         self.pool = FarPool(capacity_bytes, device=self.device,
                             page_bytes=page_bytes, n_shards=n_shards)
         self.node_id = node_id

@@ -10,7 +10,7 @@ torch versions run (`kernels/ops.py` dispatches on the tensor's device).
 
 Entry points (each takes an optional `row_ids` for partition dispatch):
 
-  pipe(rows)                                   rows already materialized
+  pipe(rows, device=...)                       rows already materialized
   pipe.run_pages(buf, pages, n_valid, ...)     gather + pipeline, one request
   pipe.run_pages_batched(buf, pages, n_valid, ...)   stacked round: pages
       (B, P), n_valid (B,). The stack axis B is explicit all the way down:
@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core import operators as op_ir
 from repro_torch.core import pool as fpool
+from repro_torch.core.errors import FarviewError
 from repro_torch.core.table import FTable, WORD_BYTES
 from repro_torch.kernels import ops as kops
 
@@ -45,6 +46,18 @@ _LATER_SLICES = {
     op_ir.RegexMatch: "slice 4 (regex over string tables with the dfa_match "
                       "kernel)",
 }
+
+
+def resolve_device(device, caller: str) -> torch.device:
+    """An entry point's device: None means the CUDA card, and raises where
+    there is none rather than run the plain versions on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise FarviewError(
+                f"{caller}(device=None) runs on the CUDA card and none is "
+                "available; pass device='cpu' to run the plain versions")
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 def _upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -188,12 +201,14 @@ class CompiledPipeline:
         return self._n_cols
 
     # ------------------------------------------------------------ public API
-    def __call__(self, rows, row_ids=None) -> PipelineResult:
-        """Rows already materialized: (n, w) f32, numpy or a tensor (the
-        tensor's device runs the pipeline). `row_ids` (optional, (n,)) are
-        the rows' indices in the original un-partitioned table: they key
-        the positional CTR keystream and ride the packing as survivor ids."""
-        rows = torch.as_tensor(rows, dtype=torch.float32)
+    def __call__(self, rows, row_ids=None, *, device=None) -> PipelineResult:
+        """Rows already materialized: (n, w) f32, numpy or a tensor, moved
+        to `device` (None means the CUDA card; pass "cpu" for the plain
+        versions). `row_ids` (optional, (n,)) are the rows' indices in the
+        original un-partitioned table: they key the positional CTR
+        keystream and ride the packing as survivor ids."""
+        device = resolve_device(device, "CompiledPipeline.__call__")
+        rows = torch.as_tensor(rows, dtype=torch.float32).to(device)
         n = int(rows.shape[0])
         n_valid = torch.full((1,), n, dtype=torch.int32, device=rows.device)
         payload = self._body(rows[None], n_valid,

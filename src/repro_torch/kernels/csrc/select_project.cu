@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -164,6 +166,10 @@ sp_pack_kernel(const uint32_t* __restrict__ table, Plan plan,
   for (long long j = threadIdx.x; j < n_zero; j += kThreads) zdst[j] = 0u;
 }
 
+constexpr int kMaxDevices = 64;
+std::once_flag g_smem_once[kMaxDevices];
+cudaError_t g_smem_err[kMaxDevices];
+
 Plan make_plan(const int* ops, const float* vals, const int* keep, int C) {
   Plan p = {};
   for (int c = 0; c < C; ++c) {
@@ -205,9 +211,17 @@ int sp_pack(const void* table, const int* ops, const float* vals,
   if (C < 1 || C > kMaxCols || B < 1 || N < 1) return cudaErrorInvalidValue;
   const long long n_blocks = (N + kRowsPerBlock - 1) / kRowsPerBlock;
   const size_t smem = (size_t)kRowsPerBlock * C * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      sp_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the widest plan's staging tile is allowed once per device, on first use
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(g_smem_once[dev], [dev] {
+    g_smem_err[dev] = cudaFuncSetAttribute(
+        sp_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(kRowsPerBlock * kMaxCols * sizeof(uint32_t)));
+  });
+  if (g_smem_err[dev] != cudaSuccess) return (int)g_smem_err[dev];
   dim3 grid((unsigned)n_blocks, (unsigned)B);
   sp_pack_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)table, make_plan(ops, vals, keep, C),

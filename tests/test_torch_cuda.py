@@ -140,3 +140,24 @@ def test_node_mix_on_the_card_matches_the_cpu(card):
     np.testing.assert_array_equal(ids_g, ids_c)
     for g, c in zip(rows_g, rows_c):
         assert torch.equal(g.view(torch.int32), c.view(torch.int32))
+
+
+def test_call_without_device_runs_on_the_card(card):
+    cols = tuple(fv.Column(f"c{i}") for i in range(8))
+    pipe = fv.compile_pipeline(fv.FTable("t", cols, 0), (
+        op.Crypt((1, 2), 3, "pre"), op.Select((op.Predicate("c1", "<",
+                                                            0.1),)),
+        op.Crypt((4, 5), 6, "post")))
+    rows = _table(5, (3000, 8))
+    ids = np.arange(3000) * 3 + 2
+    before = (tsp.select_project.launches, tctr.ctr_crypt.launches)
+    got = pipe(rows, row_ids=ids)                   # numpy in, card runs
+    assert got.rows.device.type == "cuda"
+    assert (tsp.select_project.launches, tctr.ctr_crypt.launches) == (
+        before[0] + 1, before[1] + 2)
+    exp = pipe(rows, row_ids=ids, device="cpu")
+    assert (got.count, got.shipped_bytes, got.read_bytes) == (
+        exp.count, exp.shipped_bytes, exp.read_bytes)
+    np.testing.assert_array_equal(got.sel_ids, exp.sel_ids)
+    assert torch.equal(got.rows.cpu().view(torch.int32),
+                       exp.rows.view(torch.int32))

@@ -18,6 +18,7 @@ from repro.core.pipeline import compile_pipeline as jax_compile
 from repro.core.table import Column as JColumn
 from repro.core.table import FTable as JFTable
 from repro_torch.core import operators as op
+from repro_torch.core.errors import FarviewError
 from repro_torch.core.pipeline import (cache_builds, compile_pipeline,
                                        CompiledPipeline)
 from repro_torch.core.table import Column, FTable
@@ -136,7 +137,7 @@ def test_entry_points_match_jax(name, with_ids):
     # __call__: rows already materialized
     rows = _rows(1, 300)
     ids = rng.choice(10**5, size=300, replace=False) if with_ids else None
-    _same(pipe(rows, row_ids=ids), jpipe(jnp.asarray(rows), row_ids=ids))
+    _same(pipe(rows, row_ids=ids, device="cpu"), jpipe(jnp.asarray(rows), row_ids=ids))
 
     # run_pages: one request gathered from shuffled pool pages, tail masked
     sizes = [900, 1000, 513]
@@ -174,7 +175,7 @@ def test_entry_points_match_jax(name, with_ids):
 def test_results_are_lazy_until_finalize():
     schema, _ = _schemas()
     pipe = CompiledPipeline(schema, PIPELINES["select"])
-    res = pipe(_rows(4, 64))
+    res = pipe(_rows(4, 64), device="cpu")
     seen = []
     res.on_finalize(lambda r: seen.append(r.shipped_bytes))
     assert res._raw is not None and seen == []
@@ -183,6 +184,16 @@ def test_results_are_lazy_until_finalize():
     res.finalize()
     assert res._raw is None and seen == [res.count * N_COLS * 4]
     assert res.finalize() is res and len(seen) == 1
+
+
+def test_call_without_device_runs_on_the_card_or_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    schema, _ = _schemas()
+    pipe = CompiledPipeline(schema, PIPELINES["select"])
+    with pytest.raises(FarviewError, match="CUDA"):
+        pipe(_rows(4, 64))
+    with pytest.raises(FarviewError, match="CUDA"):
+        pipe(torch.from_numpy(_rows(4, 64)))
 
 
 def test_compile_cache_builds_once_per_signature():
