@@ -8,25 +8,42 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit (`nvidia-smi`);
-2. build both CUDA kernels from `src/repro_torch/kernels/csrc/` (`nvcc`);
+2. build the CUDA kernels from `src/repro_torch/kernels/csrc/` (`nvcc`,
+   one process per source, in parallel);
 3. each kernel against its plain torch version on the card, at the main
    path's shapes (B=4 stacked requests of 2^25 rows x 8 f32 columns; the
-   cipher over 4 streams of 2^28 words): bitwise equal outputs, equal
-   counts, inputs with inf/NaN/-0.0/subnormal words, every opcode,
-   OP_SKIP columns, n_valid tails, explicit cipher positions. Times each
+   cipher over 4 streams of 2^28 words; the grouping over 4 x 2^25 rows
+   with 2 value columns at 1024 and at 256 buckets): bitwise equal
+   outputs, equal counts, inputs with inf/NaN/-0.0/subnormal words, every
+   opcode, OP_SKIP columns, n_valid tails, explicit cipher positions,
+   group keys from NaN/inf/+-1e10 words and drop-key rows; group sums
+   bitwise on integer values and within 1e-5 of the bucket's sum of |v|
+   on N(0,1) values; two grouping launches bitwise equal. Times each
    (CUDA events, median of 10 after warm-up) beside its plain version,
-   a library yardstick where one exists, and its bound;
-4. the main path: `FViewNode(4 GiB)` holding a 2^25-row x 8-column table
+   a library yardstick where one exists, and its bound; the grouping's
+   bucket sort is timed on its own;
+4. the rows path: `FViewNode(4 GiB)` holding a 2^25-row x 8-column table
    (1 GiB, 512 pool pages; the 8-column schema of
    benchmarks/bench_selection.py) and an encrypted copy, four connections
    each submitting selection (~10%), projection, smart addressing,
    selection + post-encrypt and pre-decrypt + selection in one round;
    flush (with torch's sync debug mode set to raise: nothing before
    finalize may wait for the card), finalize, check every result bitwise
-   against the plain path on the same data, check both kernels' launch
+   against the plain path on the same data, check the kernels' launch
    counters moved during the run and that same-signature requests
-   stacked; then per-verb p50;
-5. a JSON line with every kernel's numbers, and the last line
+   stacked; then per-verb p50 and one `torch.profiler` trace of a round
+   of each verb (device time by kernel, the device's busy share);
+5. the group path, in the same node: a third 1 GiB table `grp` (c0 an i32
+   key uniform in [0, 256), the cardinality of benchmarks/
+   bench_grouping.py; c1..c7 N(0,1)), four connections each submitting
+   GroupBy (1024 buckets), Select + GroupBy and Distinct (256 buckets) in
+   one round (connection i reads the table's first 2^25 - i * 2^21 rows,
+   so the stacked requests differ), counted and checked the same way:
+   each groups payload (sums within 1e-5 of the bucket's sum of |v|) and
+   its shipped bytes against the plain path, the four partials merged
+   (`merge_group_partials`) against per-key counts and float64 sums;
+   then per-verb p50 and a traced round of each verb;
+6. a JSON line with every kernel's numbers, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits 2 without a result where torch sees no CUDA device.
@@ -34,6 +51,7 @@ Exits 2 without a result where torch sees no CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -64,6 +82,9 @@ KEY_PRE, NONCE_PRE = (0x0BADF00D, 0x5EED5EED), 1234
 KEY_POST, NONCE_POST = (0x12345678, 0x9ABCDEF0), 99
 SEL_THRESHOLD = -1.2815516            # P(N(0,1) < t) = 0.10
 N_CONNECTIONS = 4
+DROP_KEY = -2**31 + 1                 # the pipeline's masked-row group key
+GROUP_KEYS = 256                      # distinct keys of the grp table
+GROUP_REL_TOL = 1e-5                  # |sum error| <= tol * sum |v| (bucket)
 
 
 def parse_args(argv):
@@ -218,11 +239,197 @@ def check_ctr_crypt(ctr, gen, b, n_words, report):
             "library_ms": None, "shape": [b, n_words]}
 
 
-def main_path(fv, op, sp, ctr, gen, n_rows, report):
-    """Drive the port's verbs once through FViewNode; returns the launch
+def f32_words(*pool):
+    """uint32 bit patterns -> an f32 tensor on the card."""
+    return torch.tensor([w - 2**32 if w >= 2**31 else w for w in pool],
+                        dtype=torch.int32, device="cuda").view(torch.float32)
+
+
+def group_table(gen, b, n):
+    """(B, n, 8) f32 stack for the grouping checks: c0 integer keys in
+    [0, 4096), c1..c7 N(0,1); one row in a thousand of each kind below
+    gets special words: keys 5000-5009 with only zero and subnormal
+    values, 6000-6009 with +-inf among them, 7000-7009 with NaNs, and key
+    words NaN/+-inf/+-1e10/halves (the key conversion's saturation)."""
+    t = torch.randn((b, n, 8), generator=gen, device="cuda")
+    t[:, :, 0] = torch.randint(0, 4096, (b, n), generator=gen,
+                               device="cuda").float()
+    r = torch.arange(n, device="cuda")
+    kind, sub = r % 1000, (r // 1000) % 10
+    pools = {1: (5000, f32_words(0x0, 0x80000000, 0x5, 0x807FFFFF,
+                                 0x80000005, 0x00400000)),
+             2: (6000, f32_words(0x7F800000, 0xFF800000, 0x3F800000,
+                                 0xBF800000, 0x80000000)),
+             3: (7000, f32_words(0x7FC00000, 0x7FC0BEEF, 0xFFC00001,
+                                 0x40000000))}
+    for code, (base, pool) in pools.items():
+        rows = r[kind == code]
+        t[:, rows, 0] = (base + sub[rows]).float()
+        for c in (1, 2):
+            t[:, rows, c] = pool[(rows // 1000 + c) % pool.numel()]
+    key_words = f32_words(0x7FC00000, 0x7F800000, 0xFF800000, 0x501502F9,
+                          0xD01502F9, 0x40200000, 0xBF000000)
+    rows = r[kind == 4]
+    t[:, rows, 0] = key_words[(rows // 1000) % key_words.numel()]
+    return t
+
+
+def nan_words(t):
+    """int32 words of t with every NaN made one NaN word (NaN compares as
+    NaN whatever its payload)."""
+    if t.dtype != torch.float32:
+        return t
+    return torch.where(torch.isnan(t), float("nan"), t).view(torch.int32)
+
+
+def same_groups(got, exp, abs_sum, rule):
+    """Kernel vs plain: exact fields bitwise (NaN as NaN); sums by `rule`.
+    Returns the largest |sum difference| over finite sums."""
+    for f in ("bucket_keys", "count", "min", "max", "overflow_mask"):
+        if not torch.equal(nan_words(got[f]), nan_words(exp[f])):
+            raise AssertionError(f"hash_group: {f} differs from the plain "
+                                 f"version")
+    return same_sums(got["sum"], exp["sum"], abs_sum, rule, "hash_group")
+
+
+def same_sums(gs, es, abs_sum, rule, what):
+    """Group sums: bitwise by rule "bitwise"; else non-finite sums bitwise
+    and finite ones within GROUP_REL_TOL of the bucket's sum |v|. Returns
+    the largest |difference| over finite sums."""
+    if rule == "bitwise":
+        if not torch.equal(nan_words(gs), nan_words(es)):
+            raise AssertionError(f"{what}: integer sums not bitwise equal")
+        return 0.0
+    fin = torch.isfinite(es)
+    if not torch.equal(nan_words(torch.where(fin, 0.0, gs)),
+                       nan_words(torch.where(fin, 0.0, es))):
+        raise AssertionError(f"{what}: non-finite sums differ")
+    diff = torch.where(fin, (gs.double() - es.double()).abs(), 0.0)
+    if bool((diff > GROUP_REL_TOL * abs_sum.double()).any()):
+        raise AssertionError(f"{what}: a sum is off by more than "
+                             f"{GROUP_REL_TOL} of its bucket's sum |v|")
+    return float(diff.max())
+
+
+def check_hash_group(hg, ref, gen, b, n, report):
+    """group_prep and group_aggregate vs their plain versions at the main
+    path's shapes; times both, the bucket sort, the plain versions and a
+    scatter_reduce yardstick. Returns the two kernels' JSON entries."""
+    t = group_table(gen, b, n)
+    n_valid = torch.tensor([n, n - 12345, n // 2 + 7, 0][:b],
+                           dtype=torch.int32, device="cuda")
+    ops = np.array([0, 0, 0, 1, 0, 0, 0, 0], np.int32)       # c3 < 1.5
+    svals = np.array([0, 0, 0, 1.5, 0, 0, 0, 0], np.float32)
+    args = (t, 0, [1, 2], ops, svals, n_valid, DROP_KEY)
+    keys, vals = hg.group_prep(*args)
+    ek, ev = hg.group_prep_plain(*args)
+    if not (torch.equal(keys, ek) and word_err(vals, ev) == 0):
+        raise AssertionError("group_prep: kernel and plain differ")
+    report(f"group_prep: {b}x{n} rows, keys and values bitwise equal "
+           f"({int((keys == DROP_KEY).sum())} drop-key rows)")
+    del ek, ev
+    prep_ms = cuda_ms(lambda: hg.group_prep(*args))
+    prep_plain_ms = cuda_ms(lambda: hg.group_prep_plain(*args), reps=3,
+                            warmup=1)
+    prep_bytes = t.numel() * 4 + keys.numel() * 4 + vals.numel() * 4
+    prep_entry = {
+        "name": "group_prep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hash_group.cu",
+        "replaces": "src/repro/core/pipeline.py:706",
+        "launches": None, "max_abs_err": 0.0, "ms": prep_ms,
+        "plain_ms": prep_plain_ms,
+        "bound_ms": prep_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "shape": [b, n, 8]}
+    del t
+
+    data = {
+        "special": (vals, "tolerance"),
+        "integer": (torch.where(torch.isfinite(vals), torch.round(vals * 8),
+                                vals), "bitwise"),
+        "normal": (torch.randn(vals.shape, generator=gen, device="cuda"),
+                   "tolerance"),
+    }
+    err = 0.0
+    times = {}
+    for nb in (1024, 256):
+        for name, (v, rule) in data.items():
+            got = hg.group_aggregate(keys, v, nb)
+            again = hg.group_aggregate(keys, v, nb)
+            for f in got:
+                if not torch.equal(got[f].view(torch.uint8),
+                                   again[f].view(torch.uint8)):
+                    raise AssertionError(f"hash_group: two launches differ "
+                                         f"in {f}")
+            del again
+            exp = hg.group_aggregate_plain(keys, v, nb)
+            abs_sum = (hg.group_aggregate_plain(keys, v.abs(), nb)["sum"]
+                       if rule == "tolerance" else None)
+            e = same_groups(got, exp, abs_sum, rule)
+            err = max(err, e)
+            claimed = int((got["bucket_keys"] != ref.KEY_SENTINEL).sum())
+            report(f"hash_group {name} values, {nb} buckets: "
+                   f"{int(got['overflow_mask'].sum())} overflow rows, "
+                   f"{claimed} buckets claimed, exact fields bitwise equal, "
+                   f"sums {rule} (max |diff| {e}), two launches bitwise "
+                   f"equal")
+            del exp, abs_sum
+        del got
+    skew_ms = cuda_ms(lambda: hg.group_aggregate(keys, data["normal"][0],
+                                                 1024))
+    hot = int((keys == DROP_KEY).sum(dim=1).max())
+    report(f"hash_group on these keys, 1024 buckets: {skew_ms:.3f} ms (one "
+           f"request's drop-key bucket holds {hot} rows)")
+    del data
+
+    # times at the main path's keys: uniform over GROUP_KEYS, N(0,1) values
+    keys = torch.randint(0, GROUP_KEYS, (b, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    v = torch.randn((b, n, 2), generator=gen, device="cuda")
+    for nb in (1024, 256):
+        got = hg.group_aggregate(keys, v, nb)
+        bucket = ref.bucket_of(keys, nb)
+        ms = cuda_ms(lambda: hg.group_aggregate(keys, v, nb))
+        sort_ms = cuda_ms(lambda: torch.sort(bucket, dim=-1, stable=True))
+        times[nb] = (ms, sort_ms)
+        report(f"hash_group {nb} buckets, {GROUP_KEYS} uniform keys: kernel "
+               f"{ms:.3f} ms, of which the bucket sort alone {sort_ms:.3f} "
+               f"ms")
+        if nb == 1024:
+            plain_ms = cuda_ms(lambda: hg.group_aggregate_plain(keys, v, nb),
+                               reps=3, warmup=1)
+            # yardstick: one scatter_reduce each for sum, min and max over
+            # the owned rows (bucket ids and ownership given)
+            owned = (~got["overflow_mask"])[..., None]
+            idx = (bucket.long() + torch.arange(b, device="cuda")[:, None]
+                   * nb).view(-1, 1).expand(-1, v.shape[-1]).contiguous()
+            srcs = [torch.where(owned, v, x).view(-1, v.shape[-1])
+                    for x in (0.0, float("inf"), -float("inf"))]
+            outs = [torch.zeros((b * nb, v.shape[-1]), device="cuda")
+                    for _ in range(3)]
+
+            def library():
+                for o, src, how in zip(outs, srcs, ("sum", "amin", "amax")):
+                    o.scatter_reduce_(0, idx, src, how)
+            library_ms = cuda_ms(library)
+            del owned, idx, srcs, outs
+        del got, bucket
+    vw = vals.shape[-1]
+    moved = (keys.numel() * (4 + 4 * vw) + keys.numel()
+             + b * 1024 * (8 + 12 * vw))
+    entry = {"name": "hash_group", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/hash_group.cu",
+             "replaces": "src/repro/kernels/hash_group.py:171",
+             "launches": None, "max_abs_err": err, "ms": times[1024][0],
+             "sort_ms": times[1024][1], "ms_256_buckets": times[256][0],
+             "sort_ms_256_buckets": times[256][1], "plain_ms": plain_ms,
+             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": library_ms, "shape": [b, n, vw, 1024]}
+    return [entry, prep_entry]
+
+
+def rows_path(fv, op, sp, ctr, kernels, gen, node, qps, n_rows, report):
+    """Drive the rows-kind verbs once through the node; returns the launch
     counts of the counted run and the per-verb p50s."""
-    node = fv.FViewNode(4 * 2**30, device="cuda")
-    qps = [fv.open_connection(node) for _ in range(N_CONNECTIONS)]
     cols = tuple(fv.Column(f"c{i}") for i in range(8))
     ft = fv.alloc_table_mem(qps[0], fv.FTable("sel", cols, n_rows=n_rows))
     words = torch.randn((n_rows, 8), generator=gen, device="cuda")
@@ -248,8 +455,7 @@ def main_path(fv, op, sp, ctr, gen, n_rows, report):
     }
 
     # ---- the counted run: every connection submits every verb, one flush
-    sp.select_project.launches = 0
-    ctr.ctr_crypt.launches = 0
+    reset_launches(kernels)
     d0 = node.dispatches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -264,19 +470,18 @@ def main_path(fv, op, sp, ctr, gen, n_rows, report):
                for name, reqs in pending.items()}
     torch.cuda.synchronize()
     run_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"select_project": sp.select_project.launches,
-                "ctr_crypt": ctr.ctr_crypt.launches}
+    launches = read_launches(kernels)
     dispatches = node.dispatches - d0
-    report(f"main path: {N_CONNECTIONS * len(verbs)} requests in "
+    report(f"rows path: {N_CONNECTIONS * len(verbs)} requests in "
            f"{dispatches} dispatches, {run_ms:.3f} ms, launches {launches}, "
            f"no host sync before finalize")
     if dispatches != len(verbs):
         raise AssertionError(f"{dispatches} dispatches for {len(verbs)} "
                              f"distinct signatures: requests did not stack")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("select_project", "ctr_crypt"):
+        if launches[name] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
-                                 f"main path")
+                                 f"rows path")
 
     # ---- every result against the plain path on the same data
     nv = torch.tensor([n_rows], dtype=torch.int32, device="cuda")
@@ -322,13 +527,27 @@ def main_path(fv, op, sp, ctr, gen, n_rows, report):
     del results, pending, expected, sel_rows, post
 
     # ---- per-verb p50: one stacked round of all connections, 5 repeats
+    p50 = verb_p50(fv, node, qps, verbs, report)
+    profile_rounds(fv, node, qps, verbs, report)
+    return launches, p50
+
+
+def submit_round(fv, qps, t, p):
+    """One request per connection: `t` is one table for all of them, or a
+    list of one table each."""
+    ts = t if isinstance(t, list) else [t] * len(qps)
+    return [fv.submit_request(qp, x, p) for qp, x in zip(qps, ts)]
+
+
+def verb_p50(fv, node, qps, verbs, report):
+    """Per-verb p50: one stacked round of all connections, 5 repeats."""
     p50 = {}
     for name, (t, p) in verbs.items():
         times = []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            reqs = [fv.submit_request(qp, t, p) for qp in qps]
+            reqs = submit_round(fv, qps, t, p)
             node.flush()
             for r in reqs:
                 r.wait()
@@ -337,9 +556,203 @@ def main_path(fv, op, sp, ctr, gen, n_rows, report):
         p50[name] = statistics.median(times)
         report(f"p50 {name}: {p50[name]:.3f} ms for {N_CONNECTIONS} "
                f"stacked requests (runs {[round(x, 3) for x in times]})")
-    for qp in qps:
-        fv.close_connection(qp)
+    return p50
+
+
+def profile_rounds(fv, node, qps, verbs, report):
+    """One traced round of each verb: device time by operation (top 8)
+    and the device's busy share of the round's wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+    for name, (t, p) in verbs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            reqs = submit_round(fv, qps, t, p)
+            node.flush()
+            for r in reqs:
+                r.wait()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device-side events only (kernels, copies): the host ops that
+        # launched them carry the same time again
+        per: dict = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                d, c = per.get(evt.name, (0.0, 0))
+                per[evt.name] = (d + evt.time_range.elapsed_us(), c + 1)
+        rows = sorted(((d, k, c) for k, (d, c) in per.items()),
+                      reverse=True)
+        busy = sum(r[0] for r in rows)
+        report(f"profile {name}: wall {wall_us / 1e3:.3f} ms, device busy "
+               f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%); top: "
+               + "; ".join(f"{k[:48]} x{c} {d / 1e3:.3f} ms"
+                           for d, k, c in rows[:8]))
+
+
+def plain_groups(hg, sp, op, words, pipe, n_valid):
+    """One request's groups payload computed by the plain versions alone,
+    from the table's words (n, 8) of which the first n_valid rows are the
+    request's: prologue, aggregation, then the collision rows stably
+    packed to the front. Also each bucket's sum of |v| ("abs_sum")."""
+    n = words.shape[0]
+    ops = np.zeros(8, np.int32)
+    svals = np.zeros(8, np.float32)
+    group = distinct = None
+    for o in pipe:
+        if isinstance(o, op.Select):
+            for pr in o.predicates:
+                i = int(pr.col[1:])
+                ops[i], svals[i] = op.OPS[pr.op], pr.value
+        elif isinstance(o, op.GroupBy):
+            group = o
+        elif isinstance(o, op.Distinct):
+            distinct = o
+    if group is not None:
+        kcol, vcols, nb = int(group.key[1:]), [int(c[1:]) for c in
+                                               group.values], group.n_buckets
+    else:
+        kcol = int(distinct.cols[0][1:])
+        vcols, nb = [kcol], distinct.n_buckets
+    nv = torch.tensor([n_valid], dtype=torch.int32, device="cuda")
+    keys, vals = hg.group_prep_plain(words[None], kcol, vcols, ops, svals, nv,
+                                     DROP_KEY)
+    res = hg.group_aggregate_plain(keys, vals, nb)
+    abs_sum = hg.group_aggregate_plain(keys, vals.abs(), nb)["sum"][0]
+    keep = res["overflow_mask"] & (keys != DROP_KEY)
+    order = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)
+    cnt = int(keep.sum())
+    v = len(vcols)
+    out = {f: x[0] for f, x in res.items() if f != "overflow_mask"}
+    out["ovf_keys"] = keys.gather(-1, order)[0, :cnt]
+    out["ovf_vals"] = vals.gather(1, order[..., None].expand(1, n, v))[0,
+                                                                        :cnt]
+    out["shipped"] = nb * (2 + 4 * v) * 4 + cnt * (1 + v) * 4
+    out["abs_sum"] = abs_sum
+    return out
+
+
+def group_path(fv, op, hg, sp, kernels, gen, node, qps, n_rows, report):
+    """Drive the group verbs once through the node (a third 1 GiB table);
+    returns the launch counts of the counted run and the per-verb p50s.
+    Connection i reads the table's first n_rows - i * n_rows / 16 rows, so
+    the four stacked requests have different data (ragged n_valid)."""
+    cols = (fv.Column("c0", "i32"),) + tuple(fv.Column(f"c{i}")
+                                             for i in range(1, 8))
+    ft = fv.alloc_table_mem(qps[0], fv.FTable("grp", cols, n_rows=n_rows))
+    words = torch.randn((n_rows, 8), generator=gen, device="cuda")
+    words[:, 0] = torch.randint(0, GROUP_KEYS, (n_rows,), generator=gen,
+                                device="cuda").float()
+    fv.table_write(qps[0], ft, words)
+    views = [dataclasses.replace(ft, n_rows=n_rows - i * (n_rows // 16))
+             for i in range(len(qps))]
+    report(f"pool: table grp of {len(ft.pages)} pages, {GROUP_KEYS} keys; "
+           f"connections read its first {[v.n_rows for v in views]} rows")
+    verbs = {
+        "group_by": (views, (op.GroupBy("c0", ("c1", "c2"),
+                                        n_buckets=1024),)),
+        "selection_group_by": (views, (
+            op.Select((op.Predicate("c3", "<", 0.0),)),
+            op.GroupBy("c0", ("c1",), aggs=("count", "sum", "min", "max")))),
+        "distinct": (views, (op.Distinct(("c0",), n_buckets=256),)),
+    }
+
+    reset_launches(kernels)
+    d0 = node.dispatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    pending = {name: submit_round(fv, qps, t, p)
+               for name, (t, p) in verbs.items()}
+    node.flush()
+    torch.cuda.set_sync_debug_mode("default")
+    results = {name: [r.wait() for r in reqs]
+               for name, reqs in pending.items()}
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches(kernels)
+    dispatches = node.dispatches - d0
+    report(f"group path: {N_CONNECTIONS * len(verbs)} requests in "
+           f"{dispatches} dispatches, {run_ms:.3f} ms, launches {launches}, "
+           f"no host sync before finalize")
+    if dispatches != len(verbs):
+        raise AssertionError(f"{dispatches} dispatches for {len(verbs)} "
+                             f"distinct signatures: requests did not stack")
+    for name in ("group_prep", "hash_group", "select_project"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} kernel never launched on the "
+                                 f"group path")
+
+    keys = words[:, 0].long()
+    # how many connections read each row: the weight of its merged total
+    weight = sum((torch.arange(n_rows, device="cuda") < v.n_rows).double()
+                 for v in views)
+    for name, res_list in results.items():
+        pipe = verbs[name][1]
+        worst = 0.0
+        for view, res in zip(views, res_list):
+            exp = plain_groups(hg, sp, op, words, pipe, view.n_rows)
+            g = res.groups
+            for f in ("bucket_keys", "count", "min", "max"):
+                if not torch.equal(nan_words(g[f]), nan_words(exp[f])):
+                    raise AssertionError(f"{name}: {f} differs from the "
+                                         f"plain path")
+            worst = max(worst, same_sums(g["sum"], exp["sum"],
+                                         exp["abs_sum"], "tolerance", name))
+            if not (np.array_equal(g["ovf_keys"], exp["ovf_keys"].cpu().numpy())
+                    and np.array_equal(
+                        g["ovf_vals"].view(np.uint32),
+                        exp["ovf_vals"].cpu().numpy().view(np.uint32))):
+                raise AssertionError(f"{name}: collision rows differ from "
+                                     f"the plain path")
+            if res.shipped_bytes != exp["shipped"]:
+                raise AssertionError(f"{name}: shipped bytes "
+                                     f"{res.shipped_bytes} vs {exp['shipped']}")
+            del exp
+        # all four partials merged against per-key counts and float64 sums
+        # of the rows each connection read
+        w = weight
+        if isinstance(pipe[0], op.Select):
+            w = torch.where(words[:, 3] < 0.0, weight, 0.0)
+        vcol = 1 if name != "distinct" else 0
+        cnt = torch.bincount(keys, weights=w, minlength=GROUP_KEYS)
+        cnt = cnt.round().long().cpu().numpy()
+        s64 = torch.zeros(GROUP_KEYS, dtype=torch.float64, device="cuda")
+        s64.index_add_(0, keys, words[:, vcol].double() * w)
+        a64 = torch.zeros(GROUP_KEYS, dtype=torch.float64, device="cuda")
+        a64.index_add_(0, keys, words[:, vcol].abs().double() * w)
+        s64, a64 = s64.cpu().numpy(), a64.cpu().numpy()
+        merged = fv.merge_group_partials(ft, pipe, res_list).groups
+        if sorted(merged) != [i for i in range(GROUP_KEYS) if cnt[i]]:
+            raise AssertionError(f"{name}: merged keys differ")
+        merged_worst = 0.0
+        for key, (c, s, _, _) in merged.items():
+            if c != cnt[key]:
+                raise AssertionError(f"{name}: key {key} count {c} vs "
+                                     f"{cnt[key]}")
+            d = abs(float(s[0]) - s64[key])
+            if d > GROUP_REL_TOL * a64[key]:
+                raise AssertionError(f"{name}: key {key} sum off by {d}")
+            merged_worst = max(merged_worst, d / max(a64[key], 1e-30))
+        ovf = [int(r.groups["ovf_keys"].shape[0]) for r in res_list]
+        report(f"{name}: collision rows per connection {ovf}; "
+               f"{N_CONNECTIONS} payloads equal to the plain path (sums "
+               f"within {worst:.3g} absolute); all {N_CONNECTIONS} merged: "
+               f"{len(merged)} keys, counts exact, sums within "
+               f"{merged_worst:.3g} of sum |v| (float64)")
+    del results, pending, weight
+    p50 = verb_p50(fv, node, qps, verbs, report)
+    profile_rounds(fv, node, qps, verbs, report)
     return launches, p50
+
+
+def reset_launches(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_launches(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
 
 
 def main(argv=None) -> int:
@@ -352,7 +765,14 @@ def main(argv=None) -> int:
     from repro_torch.core import operators as op
     from repro_torch.kernels import _build
     from repro_torch.kernels import ctr_crypt as ctr
+    from repro_torch.kernels import hash_group as hg
+    from repro_torch.kernels import ref
     from repro_torch.kernels import select_project as sp
+    # every kernel wrapper's launch counter, by the JSON line's names
+    kernels = {"select_project": sp.select_project,
+               "ctr_crypt": ctr.ctr_crypt,
+               "hash_group": hg.group_aggregate,
+               "group_prep": hg.group_prep}
 
     def report(line):
         print(line, flush=True)
@@ -381,10 +801,22 @@ def main(argv=None) -> int:
     entries.append(check_ctr_crypt(ctr, gen, N_CONNECTIONS, n * 8,
                                    report))
     torch.cuda.empty_cache()
+    entries += check_hash_group(hg, ref, gen, N_CONNECTIONS, n, report)
+    torch.cuda.empty_cache()
 
-    launches, p50 = main_path(fv, op, sp, ctr, gen, n, report)
+    node = fv.FViewNode(4 * 2**30, device="cuda")
+    qps = [fv.open_connection(node) for _ in range(N_CONNECTIONS)]
+    rows_launches, p50 = rows_path(fv, op, sp, ctr, kernels, gen, node, qps,
+                                   n, report)
+    torch.cuda.empty_cache()
+    group_launches, group_p50 = group_path(fv, op, hg, sp, kernels, gen,
+                                           node, qps, n, report)
+    p50.update(group_p50)
+    for qp in qps:
+        fv.close_connection(qp)
+    # launches: the counted runs of both paths together
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches"] = rows_launches[e["name"]] + group_launches[e["name"]]
     report(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     report(f"p50 ms per verb: {json.dumps(p50)}")
     print(json.dumps({"kernels": entries}))

@@ -7,15 +7,18 @@ run on the CUDA card unless the caller passes `device="cpu"`; on the card
 every kernel on the request path is a hand-written CUDA kernel
 (`kernels/csrc/`), on the CPU its plain torch version runs instead.
 
-The verb API re-exported here is the rows-kind slice: selection,
-projection, smart addressing and CTR crypt over word tables.
+The verb API re-exported here covers the ported slices: selection,
+projection, smart addressing and CTR crypt (rows kind), GroupBy and
+Distinct (groups kind, merged client-side by `merge_group_partials`),
+over word tables.
 """
 from repro_torch.core.client import (FViewNode, PendingRequest, QPair,
                                      alloc_table_mem, close_connection,
                                      farview_request, free_table_mem,
-                                     load_node_state, open_connection,
-                                     submit_request, table_read,
-                                     table_read_rows, table_write)
+                                     load_node_state, merge_group_partials,
+                                     open_connection, submit_request,
+                                     table_read, table_read_rows,
+                                     table_write)
 from repro_torch.core.errors import (DeadlineExceededError, FarviewError,
                                      NodeDeadError)
 from repro_torch.core.pipeline import PipelineResult, compile_pipeline

@@ -1,5 +1,5 @@
 """Farview programmatic interface + multi-client scheduler (port of
-`repro/core/client.py`, rows-kind verbs over word tables).
+`repro/core/client.py`: rows-kind and groups-kind verbs over word tables).
 
 Mirrors the paper's API surface:
 
@@ -9,6 +9,7 @@ Mirrors the paper's API surface:
     farview_request(qp, ft, pipeline) -> result    (the Farview verb)
     submit_request(qp, ft, pipeline)  -> pending   (async verb; node.flush()
                                                     runs the scheduler)
+    merge_group_partials(ft, pipeline, partials)   (client-side group merge)
 
 A `FViewNode` owns a FarPool on one device and a fixed set of dynamic
 regions. Submitted requests queue on the node; each scheduling round serves
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.core import operators as op_ir
 from repro_torch.core.errors import DeadlineExceededError, FarviewError, NodeDeadError  # noqa: F401,E501
+from repro_torch.core.offload import _merge
 from repro_torch.core.pipeline import (PipelineResult, compile_pipeline,
                                       resolve_device)
 from repro_torch.core.pool import PAGE_BYTES, FarPool
@@ -482,3 +484,16 @@ def farview_request(qp: QPair, ft: FTable, pipeline: tuple, *,
     if req.error is not None:
         raise req.error
     return req.result
+
+
+def merge_group_partials(ft: FTable, pipeline: tuple,
+                         partials: list[PipelineResult]) -> PipelineResult:
+    """Client-side software merge (overflow buffers, multi-node partials).
+
+    Groups-kind partials — each a compact bucket table plus packed
+    collision rows — concatenate and fold in ONE device-side segment
+    reduce (offload.merge_groups_device); only the per-key totals cross
+    back to the host dict {key: [count, sum, min, max]}. The cluster's
+    rows-kind and mask-kind merges (and their `n_rows` / `part_rows`
+    extras) come with ROADMAP.md queue 1, slice 6."""
+    return _merge(ft, pipeline, partials)

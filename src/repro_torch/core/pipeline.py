@@ -1,12 +1,14 @@
-"""Pipeline compiler for the rows kind (port of `repro/core/pipeline.py`).
+"""Pipeline compiler (port of `repro/core/pipeline.py`): the rows kind
+and the groups kind over word tables.
 
 `compile_pipeline(schema, pipeline)` returns a `CompiledPipeline` whose
 request path — pool-page gather, pre-decrypt, smart addressing, fused
-select/project/pack, post-encrypt and response byte accounting — runs as
-one sequence of device operations with no host round trip. On the card
-the two cipher passes and the select/project/pack pass are the
-hand-written CUDA kernels of `repro_torch.kernels`; on the CPU their plain
-torch versions run (`kernels/ops.py` dispatches on the tensor's device).
+select/project/pack or group-aggregate, post-encrypt and response byte
+accounting — runs as one sequence of device operations with no host
+round trip. On the card the cipher passes, the select/project/pack pass
+and the grouping passes are the hand-written CUDA kernels of
+`repro_torch.kernels`; on the CPU their plain torch versions run
+(`kernels/ops.py` dispatches on the tensor's device).
 
 Entry points (each takes an optional `row_ids` for partition dispatch):
 
@@ -18,10 +20,10 @@ Entry points (each takes an optional `row_ids` for partition dispatch):
 
 Every entry point returns lazy `PipelineResult`s: device tensors plus
 device count/byte scalars. `PipelineResult.finalize()` is the ONLY sync
-point.
+point: for groups it also copies the packed collision rows to the host.
 
-The JAX pipeline also runs join probes, grouping and regex over string
-tables. Those come in later slices of the port (ROADMAP.md queue 1); this
+The JAX pipeline also runs join probes and regex over string tables.
+Those come in later slices of the port (ROADMAP.md queue 1); this
 pipeline refuses them at construction rather than run them some other way.
 """
 from __future__ import annotations
@@ -37,11 +39,12 @@ from repro_torch.core import pool as fpool
 from repro_torch.core.errors import FarviewError
 from repro_torch.core.table import FTable, WORD_BYTES
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+
+_DROP_KEY = kref.KEY_SENTINEL + 1     # masked-row group key (never in data)
 
 # operator -> the ROADMAP.md queue-1 slice that brings it to the port
 _LATER_SLICES = {
-    op_ir.GroupBy: "slice 2 (GroupBy/Distinct with the hash_group kernel)",
-    op_ir.Distinct: "slice 2 (GroupBy/Distinct with the hash_group kernel)",
     op_ir.JoinSmall: "slice 3 (JoinSmall with the hash_join kernel)",
     op_ir.RegexMatch: "slice 4 (regex over string tables with the dfa_match "
                       "kernel)",
@@ -70,32 +73,55 @@ def _upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor's values as a numpy array, copied from the card
+    through pinned memory (a pageable copy runs at a fraction of the
+    link's rate)."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
 class PipelineResult:
     """Lazy response handle: device tensors + device count/byte scalars.
 
     `finalize()` is the only synchronization point — it converts the count
-    and shipped-byte scalars to Python ints, copies the survivor ids to the
-    host, and fires accounting callbacks. Scalar properties (`count`,
-    `shipped_bytes`, `sel_ids`) finalize on first access; `rows` hands back
-    the raw device tensor without forcing a sync.
+    and shipped-byte scalars to Python ints, copies the survivor ids and
+    the group-overflow collision rows to the host, and fires accounting
+    callbacks. Scalar properties (`count`, `groups`, `shipped_bytes`,
+    `sel_ids`) finalize on first access; `rows` hands back the raw device
+    tensor without forcing a sync.
     """
 
-    def __init__(self, kind: str, *, read_bytes: int = 0,
-                 _raw: dict | None = None):
-        self.kind = kind                # "rows" (the only kind this slice runs)
+    def __init__(self, kind: str, *, groups: dict | None = None,
+                 shipped_bytes: int = 0, read_bytes: int = 0,
+                 _raw: dict | None = None, _meta: dict | None = None):
+        self.kind = kind                # "rows" | "groups"
         self.read_bytes = read_bytes    # static: bytes pulled from pool memory
         self._rows = None
         self._count = None
-        self._shipped = 0
+        self._groups = groups
+        self._shipped = shipped_bytes
         self._ids = None                # survivors' original row ids, or None
         self._raw = _raw                # unfinalized payload
+        self._meta = _meta or {}
         self._callbacks: list[Callable] = []
 
     @property
     def rows(self):
-        if self._raw is not None:
+        if self._raw is not None and "rows" in self._raw:
             return self._raw["rows"]
         return self._rows
+
+    @property
+    def groups(self):
+        """Groups kind: bucket_keys / count (n_buckets,) and sum, min,
+        max (n_buckets, V) device tensors, `drop_key`, and the collision
+        rows `ovf_keys` (n,) / `ovf_vals` (n, V) as host numpy arrays."""
+        self.finalize()
+        return self._groups
 
     @property
     def count(self):
@@ -126,17 +152,34 @@ class PipelineResult:
         Idempotent and cheap after the first call."""
         if self._raw is not None:
             raw, self._raw = self._raw, None
-            self._rows = raw["rows"]
-            self._count = int(raw["count"])
-            self._shipped = int(raw["shipped"])
-            if "ids" in raw:
-                ids = raw["ids"][: self._count].cpu().numpy()
-                self._ids = np.rint(ids).astype(np.int64)
+            if self.kind == "groups":
+                self._finalize_groups(raw)
+            else:
+                self._rows = raw["rows"]
+                self._count = int(raw["count"])
+                self._shipped = int(raw["shipped"])
+                if "ids" in raw:
+                    ids = raw["ids"][: self._count].cpu().numpy()
+                    self._ids = np.rint(ids).astype(np.int64)
         if self._callbacks:
             cbs, self._callbacks = self._callbacks, []
             for cb in cbs:
                 cb(self)
         return self
+
+    def _finalize_groups(self, raw: dict) -> None:
+        # the paper's collision buffer: overflow rows ship to the client
+        # for software post-aggregation. They are already packed to the
+        # front of ovf_keys/ovf_vals on the device, so only the
+        # `ovf_count` collision rows cross to the host.
+        n_ovf = int(raw["ovf_count"])
+        self._groups = dict(
+            bucket_keys=raw["bucket_keys"], count=raw["count"],
+            sum=raw["sum"], min=raw["min"], max=raw["max"],
+            drop_key=self._meta.get("drop_key"),
+            ovf_keys=_to_host(raw["ovf_keys"][:n_ovf]),
+            ovf_vals=_to_host(raw["ovf_vals"][:n_ovf]))
+        self._shipped = int(raw["shipped"])
 
 
 class CompiledPipeline:
@@ -144,6 +187,10 @@ class CompiledPipeline:
 
     def __init__(self, schema: FTable, pipeline: tuple):
         pipeline = op_ir.validate_pipeline(tuple(pipeline))
+        if (any(isinstance(op, op_ir.JoinSmall) for op in pipeline)
+                and any(isinstance(op, (op_ir.GroupBy, op_ir.Distinct))
+                        for op in pipeline)):
+            raise ValueError("JoinSmall composes with select/project only")
         for op in pipeline:
             later = _LATER_SLICES.get(type(op))
             if later is not None:
@@ -155,7 +202,6 @@ class CompiledPipeline:
                 "string tables are not ported yet: they come with ROADMAP.md "
                 f"queue 1, {_LATER_SLICES[op_ir.RegexMatch]}")
         self.signature = op_ir.signature(pipeline)
-        self.kind = "rows"
         self._cols = tuple(c.name for c in schema.columns)
         self._n_cols = len(self._cols)
 
@@ -167,6 +213,8 @@ class CompiledPipeline:
         self.smart = False
         self.crypt_pre: op_ir.Crypt | None = None
         self.crypt_post: op_ir.Crypt | None = None
+        self.group: op_ir.GroupBy | None = None
+        self.distinct: op_ir.Distinct | None = None
         for op in pipeline:
             if isinstance(op, op_ir.Project):
                 self.proj_cols = [self._col(c) for c in op.cols]
@@ -180,11 +228,17 @@ class CompiledPipeline:
                     i = self._col(p.col)
                     self.sel_ops[i] = op_ir.OPS[p.op]
                     self.sel_vals[i] = p.value
+            elif isinstance(op, op_ir.GroupBy):
+                self.group = op
+            elif isinstance(op, op_ir.Distinct):
+                self.distinct = op
             elif isinstance(op, op_ir.Crypt):
                 if op.when == "pre":
                     self.crypt_pre = op
                 else:
                     self.crypt_post = op
+        self.kind = ("groups" if (self.group is not None
+                                  or self.distinct is not None) else "rows")
 
     def _col(self, name: str) -> int:
         try:
@@ -261,12 +315,13 @@ class CompiledPipeline:
 
     @staticmethod
     def _split(payload: dict, b: int, nv: int) -> dict:
-        """Request b's slice of a stacked payload, rows cut back to the
-        request's own length (packed survivors always fit: count <= nv)."""
+        """Request b's slice of a stacked payload, row-shaped tensors cut
+        back to the request's own length (packed survivors and collision
+        rows always fit: count <= nv)."""
         out = {}
         for k, v in payload.items():
             v = v[b]
-            if k in ("rows", "ids"):
+            if k in ("rows", "ids", "ovf_keys", "ovf_vals"):
                 v = v[:nv]
             out[k] = v
         return out
@@ -294,7 +349,12 @@ class CompiledPipeline:
         return n_rows * row_words * WORD_BYTES
 
     def _wrap(self, payload: dict, read_bytes: int) -> PipelineResult:
-        return PipelineResult(self.kind, read_bytes=read_bytes, _raw=payload)
+        # drop_key is always published for groups: select masking and
+        # n_valid tail masking both remap dropped rows to _DROP_KEY, and
+        # real keys never collide with it (ingest enforces |key| < 2^24)
+        meta = {"drop_key": _DROP_KEY} if self.kind == "groups" else None
+        return PipelineResult(self.kind, read_bytes=read_bytes, _raw=payload,
+                              _meta=meta)
 
     def _gather_run(self, buf, pages, n_valid, row_ids, n_rows, row_words):
         if self._columnar_read():
@@ -340,6 +400,10 @@ class CompiledPipeline:
             eff_proj = self.proj_mask
             ncols_out = int(np.sum(eff_proj))
 
+        # -- grouping ---------------------------------------------------------
+        if self.kind == "groups":
+            return self._group_body(work, eff_sel_ops, eff_sel_vals, n_valid)
+
         # -- survivor-id column: partitioned dispatch threads each row's
         # original-table index through the packing (predicate-skipped,
         # projection-kept); split off before the response encrypt -----------
@@ -371,6 +435,51 @@ class CompiledPipeline:
         if ids_packed is not None:
             out["ids"] = ids_packed
         return out
+
+    def _group_body(self, work: torch.Tensor, sel_ops, sel_vals,
+                    n_valid: torch.Tensor) -> dict:
+        """Grouping over the (B, n, w) stack: selected rows below n_valid
+        aggregate into the bucket tables; the others carry _DROP_KEY (and
+        still claim buckets, as in the reference)."""
+        if self.group is not None:
+            kcol = self._col(self.group.key)
+            vcols = [self._col(c) for c in self.group.values]
+            nb = self.group.n_buckets
+        else:
+            kcol = self._col(self.distinct.cols[0])
+            vcols = [kcol]
+            nb = self.distinct.n_buckets
+        b, n, _ = work.shape
+        v = len(vcols)
+        keys, vals = kops.group_prep(work.contiguous(), kcol, vcols, sel_ops,
+                                     sel_vals, n_valid, _DROP_KEY)
+        res = kops.group_aggregate(keys, vals, nb)
+        keep = res["overflow_mask"] & (keys != _DROP_KEY)
+        # the collision partial: overflow rows packed to the front in
+        # original order by the select/project pass (keep as an ==1
+        # predicate column, keys as int32 words copied bitwise), so the
+        # response ships nb buckets + the actual collision rows
+        table = torch.empty((b, n, v + 2), dtype=torch.float32,
+                            device=work.device)
+        table[..., 0] = keys.view(torch.float32)
+        table[..., 1:1 + v] = vals
+        table[..., v + 1] = keep
+        ops = np.zeros(v + 2, np.int32)
+        ops[-1] = op_ir.OPS["=="]
+        vals_k = np.zeros(v + 2, np.float32)
+        vals_k[-1] = 1.0
+        proj = np.ones(v + 2, np.float32)
+        proj[-1] = 0.0
+        every_row = torch.full((b,), n, dtype=torch.int32, device=work.device)
+        packed, keep_cnt = kops.select_project(table, ops, vals_k, proj,
+                                               every_row)
+        shipped = (nb * (2 + 4 * v) * WORD_BYTES
+                   + keep_cnt * ((1 + v) * WORD_BYTES))
+        return {"bucket_keys": res["bucket_keys"], "count": res["count"],
+                "sum": res["sum"], "min": res["min"], "max": res["max"],
+                "ovf_keys": packed[..., 0].view(torch.int32),
+                "ovf_vals": packed[..., 1:1 + v], "ovf_count": keep_cnt,
+                "shipped": shipped}
 
 
 _CACHE: dict = {}                # guarded-by: _CACHE_LOCK

@@ -3,8 +3,9 @@
 Each `.cu` file exposes a plain C interface and is compiled by `nvcc` into
 its own shared library under `build/torch_kernels/` at the repository
 root, then loaded with `ctypes`. All sources compile in parallel, one
-`nvcc` process each. A library's file name carries a hash of its source
-and flags, so an edited source rebuilds and an unchanged one loads
+`nvcc` process each. A library's file name carries a hash of its source,
+the shared `.cuh` headers and the flags, so an edited source or header
+rebuilds and an unchanged one loads
 straight from the build directory. Nothing here runs at import time: the
 first kernel launch (or `load_all()`) builds.
 
@@ -23,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("select_project.cu", "ctr_crypt.cu")
+SOURCES = ("select_project.cu", "ctr_crypt.cu", "hash_group.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,6 +40,18 @@ _SIGNATURES = {
     "ctr_crypt.cu": {
         "ctr_crypt": ([_P, _P, _P, _LL, _I, _U, _U, _U, _P], _I),
         "ctr_error_string": ([_I], ctypes.c_char_p),
+    },
+    "hash_group.cu": {
+        "hg_prep": ([_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _LL, _I,
+                     _P], _I),
+        "hg_bucket": ([_P, _P, _LL, _I, _I, _P], _I),
+        "hg_claim": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
+        "hg_aggregate": ([_P] * 15 + [_LL, _I, _I, _I, _I, _P], _I),
+        "hg_piece_rows": ([], _I),
+        "hg_overflow": ([_P, _P, _P, _LL, _I, _I, _P], _I),
+        "hg_max_vals": ([], _I),
+        "hg_max_cols": ([], _I),
+        "hg_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -62,7 +75,9 @@ def _nvcc() -> str:
 
 
 def _target(src: str) -> Path:
-    digest = hashlib.sha256((CSRC / src).read_bytes()
+    # the shared headers (`*.cuh`) enter every source's hash
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / src).read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(src).stem}-{digest[:16]}.so"
 

@@ -36,60 +36,21 @@
 
 #include <mutex>
 
+#include "predicate.cuh"
+
 namespace {
+
+using predicate::kMaxCols;
+using predicate::load_plan;
+using predicate::make_plan;
+using predicate::Plan;
+using predicate::row_passes;
+using predicate::SharedPlan;
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = 1024;
 constexpr int kSubTiles = kRowsPerBlock / kThreads;
-constexpr int kMaxCols = 32;
 constexpr int kWarps = kThreads / 32;
-
-enum { OP_SKIP, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE };
-
-struct Plan {
-  int ops[kMaxCols];
-  float vals[kMaxCols];
-  int keep[kMaxCols];
-};
-
-struct SharedPlan {
-  int ops[kMaxCols];
-  float vals[kMaxCols];
-  uint32_t keep[kMaxCols];
-};
-
-// subnormals (and -0.0) compare as 0.0; see the contract above
-__device__ __forceinline__ float flush_subnormal(float x) {
-  return (__float_as_uint(x) & 0x7F800000u) == 0u ? 0.0f : x;
-}
-
-__device__ __forceinline__ void load_plan(const Plan& plan, int C,
-                                          SharedPlan* s) {
-  if (threadIdx.x < C) {
-    s->ops[threadIdx.x] = plan.ops[threadIdx.x];
-    s->vals[threadIdx.x] = flush_subnormal(plan.vals[threadIdx.x]);
-    s->keep[threadIdx.x] = plan.keep[threadIdx.x] ? 0xFFFFFFFFu : 0u;
-  }
-}
-
-__device__ __forceinline__ bool row_passes(const uint32_t* row, int C,
-                                           const SharedPlan& s) {
-  bool ok = true;
-  for (int c = 0; c < C; ++c) {
-    const float x = flush_subnormal(__uint_as_float(row[c]));
-    const float v = s.vals[c];
-    switch (s.ops[c]) {
-      case OP_LT: ok = ok && (x < v); break;
-      case OP_LE: ok = ok && (x <= v); break;
-      case OP_GT: ok = ok && (x > v); break;
-      case OP_GE: ok = ok && (x >= v); break;
-      case OP_EQ: ok = ok && (x == v); break;
-      case OP_NE: ok = ok && (x != v); break;
-      default: break;  // OP_SKIP and unknown codes pass, as in the reference
-    }
-  }
-  return ok;
-}
 
 __global__ void __launch_bounds__(kThreads)
 sp_count_kernel(const uint32_t* __restrict__ table, Plan plan,
@@ -169,16 +130,6 @@ sp_pack_kernel(const uint32_t* __restrict__ table, Plan plan,
 constexpr int kMaxDevices = 64;
 std::once_flag g_smem_once[kMaxDevices];
 cudaError_t g_smem_err[kMaxDevices];
-
-Plan make_plan(const int* ops, const float* vals, const int* keep, int C) {
-  Plan p = {};
-  for (int c = 0; c < C; ++c) {
-    p.ops[c] = ops[c];
-    p.vals[c] = vals[c];
-    p.keep[c] = keep[c];
-  }
-  return p;
-}
 
 }  // namespace
 

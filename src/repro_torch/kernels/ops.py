@@ -7,9 +7,12 @@ no fallback from one to the other.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ctr_crypt as _ctr
+from repro_torch.kernels import hash_group as _hg
+from repro_torch.kernels import ref
 from repro_torch.kernels import select_project as _sp
 
 
@@ -41,3 +44,98 @@ def crypt(data: torch.Tensor, key, nonce: int,
     is given."""
     fn = _pick(data, _ctr.ctr_crypt, _ctr.ctr_crypt_plain)
     return fn(data, key, nonce, idx)
+
+
+# ---------------------------------------------------------------------------
+# grouping
+# ---------------------------------------------------------------------------
+def group_prep(table: torch.Tensor, kcol: int, vcols, sel_ops, sel_vals,
+               n_valid: torch.Tensor, drop_key: int):
+    """table (B, N, C) f32; the grouping prologue of `repro/core/
+    pipeline.py::_group_body` for each request: rows that fail the
+    predicate or lie past n_valid[b] get key drop_key and zero values,
+    the others key rint(table[..., kcol]) (saturated to int32) and the
+    value columns vcols. Returns (keys (B, N) int32, values (B, N, V))."""
+    fn = _pick(table, _hg.group_prep, _hg.group_prep_plain)
+    return fn(table, kcol, vcols, sel_ops, sel_vals, n_valid, drop_key)
+
+
+def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
+                    n_buckets: int = 1024) -> dict:
+    """keys (B, N) int32, values (B, N, V) f32 -> the dict of `ref.
+    group_aggregate` for each request (aggregates + overflow mask).
+    Overflow rows (bucket collisions) go to the client for the merge,
+    mirroring the paper's cuckoo-overflow contract."""
+    fn = _pick(keys, _hg.group_aggregate, _hg.group_aggregate_plain)
+    return fn(keys, values, n_buckets)
+
+
+def _entry_device(device, caller: str) -> torch.device:
+    # imported here: core.pipeline imports this module
+    from repro_torch.core.pipeline import resolve_device
+    return resolve_device(device, caller)
+
+
+def group_aggregate_full(keys, values, *, n_buckets: int = 1024,
+                         device=None) -> dict:
+    """Kernel aggregation + client-side overflow merge -> exact dict result.
+
+    keys (N,) int32, values (N, V) f32 (host arrays), run on `device`:
+    None means the CUDA card (raising where there is none), "cpu" the
+    plain versions. The smart memory aggregates what fits its hash table;
+    collision overflow is merged in "client software". Returns {key:
+    (count, sum, min, max)} over all keys."""
+    dev = _entry_device(device, "group_aggregate_full")
+    k = torch.as_tensor(np.asarray(keys, np.int32)).to(dev)
+    v = torch.as_tensor(np.asarray(values, np.float32)).to(dev)
+    res = group_aggregate(k[None], v[None], n_buckets)
+    return _finalize_group_full(keys, values,
+                                {f: x[0] for f, x in res.items()})
+
+
+def _finalize_group_full(keys, values, res) -> dict:
+    """Finalize boundary: bring the bucket outputs to the host and merge
+    collision overflow in "client software" (the paper's split)."""
+    out: dict[int, tuple] = {}
+    bkeys = res["bucket_keys"].cpu().numpy()
+    cnts = res["count"].cpu().numpy()
+    sums = res["sum"].cpu().numpy()
+    mins = res["min"].cpu().numpy()
+    maxs = res["max"].cpu().numpy()
+    for i in range(bkeys.shape[0]):
+        if bkeys[i] != ref.KEY_SENTINEL and cnts[i] > 0:
+            out[int(bkeys[i])] = (int(cnts[i]), sums[i].copy(),
+                                  mins[i].copy(), maxs[i].copy())
+    ovf = res["overflow_mask"].cpu().numpy()
+    kh = np.asarray(keys)[ovf]
+    vh = np.asarray(values, np.float32)[ovf]
+    for k, row in zip(kh.tolist(), vh):
+        if k in out:
+            c, s, mn, mx = out[k]
+            out[k] = (c + 1, s + row, np.minimum(mn, row),
+                      np.maximum(mx, row))
+        else:
+            out[k] = (1, row.copy(), row.copy(), row.copy())
+    return out
+
+
+def distinct(keys, *, n_buckets: int = 1024, device=None) -> list:
+    """DISTINCT via group_aggregate (count only) + client-side overflow
+    dedup. keys (N,) int32 (a host array), run on `device` as in
+    `group_aggregate_full`; returns the sorted distinct keys."""
+    k = torch.as_tensor(np.asarray(keys, np.int32)).to(
+        _entry_device(device, "distinct"))
+    vals = torch.zeros((1, k.shape[0], 1), dtype=torch.float32,
+                       device=k.device)
+    res = group_aggregate(k[None], vals, n_buckets)
+    return _finalize_distinct(keys, {f: x[0] for f, x in res.items()})
+
+
+def _finalize_distinct(keys, res) -> list:
+    """Finalize boundary: host-side dedup of bucket keys + overflow rows."""
+    bk = res["bucket_keys"].cpu().numpy()
+    cnt = res["count"].cpu().numpy()
+    found = set(bk[(bk != ref.KEY_SENTINEL) & (cnt > 0)].tolist())
+    found.update(np.asarray(keys)[res["overflow_mask"].cpu().numpy()]
+                 .tolist())
+    return sorted(found)

@@ -2,8 +2,11 @@
 
 Each function is the semantic ground truth of one CUDA kernel in this
 package, written in plain torch ops so it runs on the CPU and on the card
-alike. Only the four functions the rows-kind slice needs are here:
-`eval_predicate`, `select_project`, `threefry2x32` and `ctr_crypt`.
+alike. Only the functions the ported slices need are here: the
+rows kind's `eval_predicate`, `select_project`, `threefry2x32` and
+`ctr_crypt`, and the grouping's `bucket_of`, `sort_by_bucket`,
+`segment_spans`, `segmented_reduce`, `group_aggregate` and
+`group_aggregate_exact`.
 
 Cipher words are uint32 in the reference. torch on the CPU has no add,
 shift or compare for `torch.uint32`, so the cipher carries its words in
@@ -13,10 +16,13 @@ converted, so NaN payloads and -0.0 survive bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Predicate op codes shared with the kernels (paper §5.3 predicate selection).
 OP_SKIP, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE = range(7)
+
+KEY_SENTINEL = -2**31           # "empty bucket" marker (hash_group)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -47,7 +53,8 @@ def eval_predicate(table: torch.Tensor, sel_ops: torch.Tensor,
 
 def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
     """f32 values with a zero exponent field (zeros and subnormals) -> 0.0;
-    for compares only, never for the words a response carries."""
+    for the operands of compares and group arithmetic, never for the words
+    a response carries."""
     exponent = x.view(torch.int32) & 0x7F800000
     return torch.where(exponent == 0, 0.0, x)
 
@@ -118,3 +125,185 @@ def ctr_crypt(data: torch.Tensor, key: tuple[int, int], nonce: int,
     stream = torch.where((pos & 1) == 0, s0, s1)
     out = (data.to(torch.int64) & _MASK32) ^ stream
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# hash_group (distinct / group-by / aggregation)
+#
+# f32 arithmetic here follows the reference as XLA runs it on the CPU:
+# every add and min/max reads subnormal operands as zero, and every output
+# of `segmented_reduce` over two or more rows has passed through one more
+# `+ 0.0` (the interleave of `jax.lax.associative_scan`), so -0.0 and
+# subnormal results come out as +0.0. A lone row is returned untouched.
+# NaN propagates through min and max.
+# ---------------------------------------------------------------------------
+_FIB = 0x9E3779B1
+F32_BIG = torch.finfo(torch.float32).max
+
+
+def bucket_of(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Multiplicative (Fibonacci) hash of int32 keys into n_buckets (a
+    power of 2): the top log2(n_buckets) bits of the uint32 product
+    key * 0x9E3779B1. Carried in int64, the product split in 16-bit
+    halves so that no intermediate leaves the int64 range."""
+    if n_buckets < 1 or n_buckets & (n_buckets - 1):
+        raise ValueError(f"n_buckets must be a power of 2, got {n_buckets}")
+    k = keys.to(torch.int64) & _MASK32
+    lo, hi = k & 0xFFFF, k >> 16
+    h = (lo * _FIB + (((hi * _FIB) & 0xFFFF) << 16)) & _MASK32
+    return (h >> (32 - (n_buckets.bit_length() - 1))).to(torch.int32)
+
+
+def sort_by_bucket(bucket: torch.Tensor, n_buckets: int):
+    """Stable sort of rows by bucket id along the last axis -> (order
+    int64, sorted_buckets). Rows of one bucket keep ascending index, the
+    order of the reference's composite-key sort."""
+    del n_buckets               # any stable sort gives the same order
+    sb, order = torch.sort(bucket, dim=-1, stable=True)
+    return order, sb
+
+
+def segment_spans(sorted_seg_ids: torch.Tensor, n_segments: int):
+    """Per-segment [start, end] row spans of a segment-sorted id array
+    (..., N), along its last axis. Returns (start, end, nonempty), each
+    (..., S); end is the INCLUSIVE last row, start and end clipped to a
+    valid index (mask with `nonempty` before trusting them). start and
+    end are int64 (torch's index type)."""
+    n = sorted_seg_ids.shape[-1]
+    ids = sorted_seg_ids.contiguous()
+    seg = torch.arange(n_segments, dtype=ids.dtype, device=ids.device)
+    seg = seg.expand(*ids.shape[:-1], n_segments).contiguous()
+    lo = torch.searchsorted(ids, seg, side="left")
+    hi = torch.searchsorted(ids, seg, side="right")
+    top = max(n - 1, 0)
+    return lo.clamp(0, top), (hi - 1).clamp(0, top), hi > lo
+
+
+def rint_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 as `jnp.rint(x).astype(jnp.int32)` converts: round half
+    to even, NaN -> 0, out of range saturates to INT32_MIN / INT32_MAX
+    (torch's own cast gives INT32_MIN for all of those)."""
+    r = torch.round(x)
+    high = r >= 2.0**31
+    low = r < -2.0**31
+    safe = torch.where(high | low | torch.isnan(r), 0.0, r).to(torch.int32)
+    return torch.where(high, 2**31 - 1, torch.where(low, -2**31, safe)).to(
+        torch.int32)
+
+
+def _add_daz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 add with subnormal operands read as zero (the result itself
+    is not flushed)."""
+    return flush_subnormals(a) + flush_subnormals(b)
+
+
+def _canonical(x: torch.Tensor) -> torch.Tensor:
+    """x + 0.0 with subnormal operands read as zero: -0.0 and subnormals
+    -> +0.0; everything else unchanged."""
+    return flush_subnormals(x) + 0.0
+
+
+def segmented_reduce(sums: torch.Tensor, mins: torch.Tensor,
+                     maxs: torch.Tensor, starts: torch.Tensor,
+                     counts: torch.Tensor | None = None):
+    """Inclusive segmented scan of (sum, min, max[, count]) along the row
+    axis. sums/mins/maxs (..., N, V) f32; starts (..., N) bool segment-
+    start flags over rows already sorted by segment; counts optional
+    (..., N) int weights. Row i of each output holds the reduction since
+    its segment's first row, so segment totals sit at segment END rows.
+    A log-depth (Hillis-Steele) scan. Returns (sum, min, max), or
+    (count, sum, min, max) when counts is given."""
+    n = sums.shape[-2]
+    s, mn, mx, f, c = sums, mins, maxs, starts, counts
+    d = 1
+    while d < n:
+        fb = f[..., d:]
+        fv = fb[..., None]
+        s = torch.cat([s[..., :d, :], torch.where(
+            fv, s[..., d:, :], _add_daz(s[..., :-d, :], s[..., d:, :]))], -2)
+        mn = torch.cat([mn[..., :d, :], torch.where(
+            fv, mn[..., d:, :], torch.minimum(mn[..., :-d, :],
+                                              mn[..., d:, :]))], -2)
+        mx = torch.cat([mx[..., :d, :], torch.where(
+            fv, mx[..., d:, :], torch.maximum(mx[..., :-d, :],
+                                              mx[..., d:, :]))], -2)
+        if c is not None:
+            c = torch.cat([c[..., :d], torch.where(
+                fb, c[..., d:], c[..., :-d] + c[..., d:])], -1)
+        f = torch.cat([f[..., :d], f[..., :-d] | fb], -1)
+        d *= 2
+    if n >= 2:
+        s, mn, mx = _canonical(s), _canonical(mn), _canonical(mx)
+    return (s, mn, mx) if c is None else (c, s, mn, mx)
+
+
+def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
+                    n_buckets: int):
+    """Hash-grouped aggregation with first-claim buckets + overflow, over
+    the last axis of keys (..., N) int32 and the row axis of values
+    (..., N, V) f32 (any leading stack axes; one aggregation each).
+
+    The first row (lowest index) hashing into a bucket claims it; rows
+    with a different key in that bucket overflow (shipped to the client
+    for software post-aggregation). Returns dict with bucket_keys (..., B)
+    int32 (KEY_SENTINEL if unclaimed), count (..., B) int32, sum/min/max
+    (..., B, V) f32 over each bucket's owned rows (rows it does not own
+    carry 0, +F32_BIG and -F32_BIG into the bucket's sum, min and max),
+    overflow_mask (..., N) bool. The contract of `repro.kernels.ref.
+    group_aggregate`."""
+    n, v = values.shape[-2:]
+    lead = keys.shape[:-1]
+    dev = keys.device
+    if n == 0:
+        return dict(
+            bucket_keys=torch.full((*lead, n_buckets), KEY_SENTINEL,
+                                   dtype=torch.int32, device=dev),
+            count=torch.zeros((*lead, n_buckets), dtype=torch.int32,
+                              device=dev),
+            sum=torch.zeros((*lead, n_buckets, v), device=dev),
+            min=torch.full((*lead, n_buckets, v), F32_BIG, device=dev),
+            max=torch.full((*lead, n_buckets, v), -F32_BIG, device=dev),
+            overflow_mask=torch.zeros((*lead, 0), dtype=torch.bool,
+                                      device=dev))
+    b = bucket_of(keys, n_buckets)
+    order, sb = sort_by_bucket(b, n_buckets)
+    start, end, nonempty = segment_spans(sb, n_buckets)
+    sorted_keys = keys.gather(-1, order)
+    claimed = torch.where(nonempty, sorted_keys.gather(-1, start),
+                          KEY_SENTINEL)
+    owns = keys == claimed.gather(-1, b.to(torch.int64))
+    so = owns.gather(-1, order)
+    sv = values.gather(-2, order[..., None].expand(*order.shape, v))
+    oc = so.to(torch.int32)
+    csum = torch.cumsum(oc, -1, dtype=torch.int32)
+    count = torch.where(nonempty, csum.gather(-1, end)
+                        - (csum.gather(-1, start) - oc.gather(-1, start)), 0)
+    flags = torch.cat([torch.ones_like(sb[..., :1], dtype=torch.bool),
+                       sb[..., 1:] != sb[..., :-1]], -1)
+    own = so[..., None]
+    ssum, smin, smax = segmented_reduce(
+        torch.where(own, sv, 0.0), torch.where(own, sv, F32_BIG),
+        torch.where(own, sv, -F32_BIG), flags)
+    at_end = end[..., None].expand(*end.shape, v)
+    ne = nonempty[..., None]
+    return dict(bucket_keys=claimed.to(torch.int32),
+                count=count.to(torch.int32),
+                sum=torch.where(ne, ssum.gather(-2, at_end), 0.0),
+                min=torch.where(ne, smin.gather(-2, at_end), F32_BIG),
+                max=torch.where(ne, smax.gather(-2, at_end), -F32_BIG),
+                overflow_mask=~owns)
+
+
+def group_aggregate_exact(keys, values) -> dict:
+    """Dict-based exact group-by (numpy, float64 sums): the oracle for
+    the kernel plus the client-side merge."""
+    out: dict[int, list] = {}
+    for k, row in zip(np.asarray(keys).tolist(), np.asarray(values)):
+        e = out.setdefault(k, [0, np.zeros_like(row, dtype=np.float64),
+                               np.full_like(row, np.inf, dtype=np.float64),
+                               np.full_like(row, -np.inf, dtype=np.float64)])
+        e[0] += 1
+        e[1] = e[1] + row
+        e[2] = np.minimum(e[2], row)
+        e[3] = np.maximum(e[3], row)
+    return out

@@ -8,7 +8,9 @@ Run them on the card with
 
 `chip_smoke.py` covers the main path's shapes (2^25-row stacks); these
 cover the ragged ones: row counts that are not a multiple of the kernel's
-1024-row block, 1..32 columns, odd stream lengths, single requests.
+1024-row block, 1..32 columns, odd stream lengths, single requests, one
+row, one bucket and many, the grouping's special values (subnormals,
++-0.0, +-inf, NaN, saturated keys, drop-key rows) and its determinism.
 """
 import numpy as np
 import pytest
@@ -16,7 +18,9 @@ import torch
 
 import repro_torch as fv
 from repro_torch.core import operators as op
+from repro_torch.core.pipeline import _DROP_KEY
 from repro_torch.kernels import ctr_crypt as tctr
+from repro_torch.kernels import hash_group as thg
 from repro_torch.kernels import select_project as tsp
 
 pytestmark = pytest.mark.cuda
@@ -81,6 +85,93 @@ def test_ctr_crypt_kernel_matches_plain(card, length, with_idx):
     assert torch.equal(got, exp)
 
 
+def _group_input(seed, b, n, v, integer):
+    """Keys over few and many buckets, drop-key and saturated rows; values
+    N(0,1) (or small integers) with subnormals, +-0.0, +-inf, NaN."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-50, 300, size=(b, n)).astype(np.int32)
+    flat = keys.reshape(-1)
+    for k in (_DROP_KEY, -2**31, 2**31 - 1, 0):
+        flat[rng.integers(0, flat.size, size=max(1, flat.size // 40))] = k
+    vals = rng.normal(size=(b, n, v)).astype(np.float32)
+    if integer:
+        vals = np.round(vals * 8)
+    fv_ = vals.reshape(-1)
+    specials = np.array([0x00000005, 0x807FFFFF, 0x80000000, 0x00000000,
+                         0x7F800000, 0xFF800000, 0x7FC00000],
+                        np.uint32).view(np.float32)
+    for x in specials:
+        fv_[rng.integers(0, fv_.size, size=max(1, fv_.size // 300))] = x
+    return torch.from_numpy(keys), torch.from_numpy(vals)
+
+
+def _words_nan(t):
+    t = t.cpu()
+    if t.dtype == torch.float32:
+        t = torch.where(torch.isnan(t), float("nan"), t)   # one NaN word
+        return t.view(torch.int32)
+    return t
+
+
+def _same_groups(got, exp, integer):
+    for f in ("bucket_keys", "count", "min", "max", "overflow_mask"):
+        assert torch.equal(_words_nan(got[f]), _words_nan(exp[f])), f
+    gs, es = got["sum"].cpu(), exp["sum"].cpu()
+    if integer:
+        assert torch.equal(_words_nan(gs), _words_nan(es))
+    else:
+        assert torch.equal(torch.isnan(gs), torch.isnan(es))
+        fin = torch.isfinite(es)
+        assert torch.equal(gs[~fin & ~torch.isnan(es)],
+                           es[~fin & ~torch.isnan(es)])
+        assert torch.all((gs[fin] - es[fin]).abs() <= 1e-5 * es[fin].abs()
+                         + 1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 1025, 5000])
+@pytest.mark.parametrize("n_buckets", [2, 32, 1024])
+@pytest.mark.parametrize("v,integer", [(1, True), (3, False)])
+def test_hash_group_kernel_matches_plain(card, n, n_buckets, v, integer):
+    keys, vals = _group_input(n * 7 + n_buckets, 3, n, v, integer)
+    keys, vals = keys.to(card), vals.to(card)
+    before = thg.group_aggregate.launches
+    got = thg.group_aggregate(keys, vals, n_buckets)
+    again = thg.group_aggregate(keys, vals, n_buckets)
+    exp = thg.group_aggregate_plain(keys, vals, n_buckets)
+    torch.cuda.synchronize()
+    assert thg.group_aggregate.launches == before + 2
+    _same_groups(got, exp, integer)
+    for f in got:                               # deterministic: bitwise
+        assert torch.equal(got[f].cpu().view(torch.uint8),
+                           again[f].cpu().view(torch.uint8)), f
+
+
+@pytest.mark.parametrize("n", [1, 300, 4099])
+def test_group_prep_kernel_matches_plain(card, n):
+    rng = np.random.default_rng(n)
+    t = _table(n, (3, n, 8))
+    # key column 0: half-way values, NaN, +-inf, +-1e10, a subnormal
+    kc = (np.round(rng.normal(size=(3, n)) * 50) / 2).astype(np.float32)
+    words = np.array([np.nan, np.inf, -np.inf, 1e10, -1e10, 2.5, -0.5, 3.5,
+                      1e-40], np.float32)
+    flat = kc.reshape(-1)
+    flat[::13] = words[np.arange(flat[::13].size) % words.size]
+    t[:, :, 0] = kc
+    table = torch.from_numpy(t).to(card)
+    ops = np.array([0, 1, 0, 4, 0, 0, 6, 0], np.int32)
+    sel = np.array([0, 0.5, 0, -1.0, 0, 0, 0.0, 0], np.float32)
+    n_valid = torch.tensor([n, n // 2, max(0, n - 9)], dtype=torch.int32,
+                           device=card)
+    before = thg.group_prep.launches
+    got = thg.group_prep(table, 0, [2, 5, 0], ops, sel, n_valid, _DROP_KEY)
+    exp = thg.group_prep_plain(table, 0, [2, 5, 0], ops, sel, n_valid,
+                               _DROP_KEY)
+    torch.cuda.synchronize()
+    assert thg.group_prep.launches == before + 1
+    assert torch.equal(got[0], exp[0])
+    assert torch.equal(got[1].view(torch.int32), exp[1].view(torch.int32))
+
+
 def test_flush_never_waits_for_the_card(card):
     """The lazy contract: from submit through flush nothing synchronises
     with the device (torch raises on a synchronising call while the sync
@@ -95,7 +186,9 @@ def test_flush_never_waits_for_the_card(card):
              (op.Crypt((1, 2), 3, "pre"), op.Project(("c0",)), sel,
               op.Crypt((4, 5), 6, "post")),
              (op.Crypt((1, 2), 3, "pre"), op.SmartAddress(("c3", "c1")),
-              sel)]
+              sel),
+             (op.GroupBy("c0", ("c1", "c2"), n_buckets=64),),
+             (sel, op.Distinct(("c0",), n_buckets=16))]
     torch.cuda.set_sync_debug_mode("error")
     try:
         reqs = [fv.submit_request(qp, ft, p) for p in pipes for qp in qps]
@@ -104,7 +197,7 @@ def test_flush_never_waits_for_the_card(card):
         node.flush()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert all(r.wait().count >= 0 for r in reqs)
+    assert all(r.wait().shipped_bytes > 0 for r in reqs)
     assert node.dispatches == len(pipes) + 1
 
 
@@ -123,20 +216,37 @@ def test_node_mix_on_the_card_matches_the_cpu(card):
         pipes = [(sel,), (op.SmartAddress(("c5", "c2")), sel),
                  (op.Crypt((1, 2), 3, "pre"), sel, op.Crypt((4, 5), 6,
                                                             "post"))]
+        groups = [(op.Crypt((1, 2), 3, "pre"), sel,
+                   op.GroupBy("c0", ("c2",), n_buckets=32)),
+                  (op.Distinct(("c0",), n_buckets=8),)]
         reqs = [fv.submit_request(qp, ft, p)
                 for p in pipes for qp, ft in zip(qps, tables)]
         reqs.append(fv.submit_request(qps[0], tables[0], pipes[0],
                                       row_ids=np.arange(3000) * 2 + 1))
+        greqs = [fv.submit_request(qp, ft, p)
+                 for p in groups for qp, ft in zip(qps, tables)]
         node.flush()
         res = [r.wait() for r in reqs]
-        results.append(([r.rows.cpu() for r in res],
+        gres = [r.wait() for r in greqs]
+        results.append((gres, [r.rows.cpu() for r in res],
                          [(r.count, r.shipped_bytes, r.read_bytes)
                           for r in res], res[-1].sel_ids, node.dispatches,
                          [(qp.bytes_read_pool, qp.bytes_shipped)
                           for qp in qps]))
-    (rows_g, meta_g, ids_g, disp_g, qp_g), (rows_c, meta_c, ids_c, disp_c,
-                                            qp_c) = results
+    (grp_g, rows_g, meta_g, ids_g, disp_g, qp_g), (
+        grp_c, rows_c, meta_c, ids_c, disp_c, qp_c) = results
     assert meta_g == meta_c and disp_g == disp_c and qp_g == qp_c
+    for g, c in zip(grp_g, grp_c):
+        assert (g.shipped_bytes, g.read_bytes) == (c.shipped_bytes,
+                                                   c.read_bytes)
+        gg, cg = g.groups, c.groups
+        for f in ("bucket_keys", "count", "min", "max"):
+            assert torch.equal(_words_nan(gg[f]), _words_nan(cg[f])), f
+        assert torch.allclose(gg["sum"].cpu(), cg["sum"], rtol=1e-5,
+                              atol=1e-5, equal_nan=True)
+        np.testing.assert_array_equal(gg["ovf_keys"], cg["ovf_keys"])
+        np.testing.assert_array_equal(gg["ovf_vals"].view(np.uint32),
+                                      cg["ovf_vals"].view(np.uint32))
     np.testing.assert_array_equal(ids_g, ids_c)
     for g, c in zip(rows_g, rows_c):
         assert torch.equal(g.view(torch.int32), c.view(torch.int32))
@@ -161,3 +271,21 @@ def test_call_without_device_runs_on_the_card(card):
     np.testing.assert_array_equal(got.sel_ids, exp.sel_ids)
     assert torch.equal(got.rows.cpu().view(torch.int32),
                        exp.rows.view(torch.int32))
+
+
+def test_full_and_distinct_without_device_run_on_the_card(card):
+    from repro_torch.kernels import ops as tops
+    rng = np.random.default_rng(12)
+    keys = rng.integers(0, 500, 3000).astype(np.int32)
+    vals = rng.integers(-9, 9, (3000, 2)).astype(np.float32)
+    before = thg.group_aggregate.launches
+    got = tops.group_aggregate_full(keys, vals, n_buckets=32)
+    assert thg.group_aggregate.launches == before + 1
+    exp = tops.group_aggregate_full(keys, vals, n_buckets=32, device="cpu")
+    assert got.keys() == exp.keys()
+    for k in exp:
+        assert got[k][0] == exp[k][0]
+        for a, b in zip(got[k][1:], exp[k][1:]):
+            np.testing.assert_array_equal(a, b)
+    assert tops.distinct(keys, n_buckets=32) == sorted(set(keys.tolist()))
+    assert thg.group_aggregate.launches == before + 2

@@ -1,8 +1,9 @@
 """The port stands alone: `src/repro_torch/` and `chip_smoke.py` import
 neither jax nor anything of the JAX package `repro`.
 
-Two checks: a subprocess imports `repro_torch`, runs one request on the
-CPU and then finds no `jax` and no `repro` module loaded; an AST scan of
+Two checks: a subprocess imports `repro_torch`, runs a selection and a
+GroupBy request (merged client-side) on the CPU and then finds no `jax`
+and no `repro` module loaded; an AST scan of
 every port file (and of `chip_smoke.py`) finds no such import statement.
 """
 import ast
@@ -30,6 +31,10 @@ fv.table_write(qp, ft, np.arange(128, dtype=np.float32).reshape(64, 2))
 res = fv.farview_request(qp, ft, (op.Select((op.Predicate("a", "<", 20.0),)),
                                   op.Crypt((1, 2), 3, "post")))
 assert res.count == 10, res.count
+group = (op.GroupBy("a", ("b",), n_buckets=16),)
+merged = fv.merge_group_partials(ft, group,
+                                 [fv.farview_request(qp, ft, group)])
+assert sorted(merged.groups) == list(range(0, 128, 2)), merged.groups
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

@@ -4,8 +4,10 @@ A JAX node is loaded through its own verbs; the port node takes over the
 same pool image and catalog through `load_node_state`. Then three QPairs
 submit the same request mix to both: results (bitwise), the scheduler's
 dispatch count (stacking), per-QPair read/shipped bytes and pool
-counters must agree exactly. Also: deadline shedding, the card-by-default
-rule, the flat pool's allocator and reads, and the client-side PageCache.
+counters must agree exactly; group verbs (over an i32-keyed table too)
+must agree on their groups payloads and merged totals. Also: deadline
+shedding, the card-by-default rule, the flat pool's allocator and reads,
+and the client-side PageCache.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,25 @@ def _words(seed: int, n: int) -> np.ndarray:
     return t
 
 
+def _k_data() -> dict:
+    """Table k's columns: c0 integer keys (40 of them), c1.. N(0,1)."""
+    rng = np.random.default_rng(9)
+    kdata = {"c0": rng.integers(0, 40, 800).astype(np.int32)}
+    kdata.update({c: rng.normal(size=800).astype(np.float32)
+                  for c in COLS[1:]})
+    return kdata
+
+
+def _plain_rows(name: str) -> np.ndarray:
+    """A table's rows as the pipeline sees them (table e decrypted)."""
+    if name == "k":
+        kdata = _k_data()
+        return np.stack([kdata[c].astype(np.float32) for c in COLS], 1)
+    name = "a" if name == "e" else name
+    i = list(SIZES).index(name)
+    return _words(i, SIZES[name])
+
+
 def _pipelines(o):
     """The request vocabulary, built from either package's operator IR."""
     P = o.Predicate
@@ -53,17 +74,25 @@ def _pipelines(o):
                      o.Crypt((9, 10), 11, "post")),
         "proj_sel": (o.Project(("c6", "c7")),
                      o.Select((P("c7", "<", 1.0),))),
+        "grp": (o.GroupBy("c0", ("c1", "c2"), n_buckets=16),),
+        "sel_dist": (o.Select((P("c3", "<", 0.0),)),
+                     o.Distinct(("c0",), n_buckets=8)),
+        "pre_grp": (o.Crypt(KEY, NONCE, "pre"),
+                    o.GroupBy("c0", ("c5",), n_buckets=32)),
     }
 
 
 # per QPair: (verb, table, partition row ids?) in submission order
 MIX = [
     [("sel", "a", False), ("smart", "c", False), ("pre_sel", "e", False),
-     ("sel_post", "b", False), ("proj_sel", "a", False), ("sel", "a", True)],
+     ("sel_post", "b", False), ("proj_sel", "a", False), ("sel", "a", True),
+     ("grp", "k", False), ("sel_dist", "a", False)],
     [("sel", "b", False), ("smart", "a", False), ("pre_sel", "e", False),
-     ("sel_post", "a", False), ("proj_sel", "c", False), ("sel", "b", True)],
+     ("sel_post", "a", False), ("proj_sel", "c", False), ("sel", "b", True),
+     ("grp", "k", False), ("pre_grp", "e", False)],
     [("sel", "c", False), ("smart", "b", False), ("pre_sel", "e", False),
-     ("sel_post", "c", False), ("proj_sel", "b", False)],
+     ("sel_post", "c", False), ("proj_sel", "b", False),
+     ("grp", "a", False), ("sel_dist", "b", False)],
 ]
 
 
@@ -83,6 +112,10 @@ def nodes():
         jnp.asarray(np.asarray(KEY, np.uint32)), NONCE))
     ft = jfv.alloc_table_mem(jqp, JFTable("e", cols, n_rows=SIZES["a"]))
     jfv.table_write(jqp, ft, enc.view(np.float32).reshape(-1, N_COLS))
+    # "k": an i32 key column (integer keys, 40 of them) for the group verbs
+    kcols = (JColumn("c0", "i32"),) + cols[1:]
+    ft = jfv.alloc_table_mem(jqp, JFTable("k", kcols, n_rows=800))
+    jfv.table_write(jqp, ft, ft.encode(_k_data()))
     jfv.close_connection(jqp)
 
     catalog = [{"name": t.name, "columns": [c.name for c in t.columns],
@@ -119,10 +152,20 @@ def test_request_mix_matches_jax_node(nodes):
     jqps, jres, j_disp = _run_mix(jnode, jfv, jop, jnode.tables)
     assert n_disp == j_disp
     assert n_disp < sum(len(m) for m in MIX)       # stacking happened
-    for r, j in zip(res, jres):
-        assert r.count == j.count
+    assert tables["k"].columns[0].dtype == "i32"       # carried across
+    for (verb, name, _), r, j in zip([x for m in MIX for x in m], res, jres):
+        assert r.kind == j.kind
         assert r.shipped_bytes == j.shipped_bytes
         assert r.read_bytes == j.read_bytes
+        if r.kind == "groups":
+            _same_groups(r, j, _abs_sums(verb, name, j.groups["bucket_keys"]))
+            _same_merge(fv.merge_group_partials(
+                tables[name], _pipelines(op)[verb], [r]).groups,
+                jfv.merge_group_partials(
+                    jnode.tables[name], _pipelines(jop)[verb], [j]).groups,
+                verb, name)
+            continue
+        assert r.count == j.count
         np.testing.assert_array_equal(_bits(r.rows.numpy()), _bits(j.rows))
         if j.sel_ids is None:
             assert r.sel_ids is None
@@ -137,6 +180,75 @@ def test_request_mix_matches_jax_node(nodes):
     for qp, jqp in zip(qps, jqps):
         fv.close_connection(qp)
         jfv.close_connection(jqp)
+
+
+def _nan_words(x) -> np.ndarray:
+    """Integer arrays as they are; f32 arrays as words, NaN as one word."""
+    a = np.asarray(x)
+    if a.dtype != np.float32:
+        return a
+    return np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
+
+
+# per group verb: (predicate column "< 0.0" or None, value columns)
+GROUP_VERBS = {"grp": (None, (1, 2)), "sel_dist": (3, (0,)),
+               "pre_grp": (None, (5,))}
+REL_TOL = 1e-5
+
+
+def _abs_sums(verb, name, bucket_keys) -> np.ndarray:
+    """Each bucket's sum of |v| over the rows it owns (those whose key is
+    the bucket's key and that pass the verb's predicate), in float64."""
+    rows = _plain_rows(name)
+    with np.errstate(invalid="ignore"):
+        keys = np.clip(np.rint(np.nan_to_num(rows[:, 0].astype(np.float64),
+                                             nan=0.0)), -2**31, 2**31 - 1)
+    pcol, vcols = GROUP_VERBS[verb]
+    keep = np.ones(len(rows), bool) if pcol is None else rows[:, pcol] < 0
+    absv = np.where(keep[:, None],
+                    np.abs(rows[:, list(vcols)].astype(np.float64)), 0.0)
+    return np.stack([absv[keys == k].sum(0)
+                     for k in np.asarray(bucket_keys, np.int64)])
+
+
+def _same_groups(r, j, abs_sum):
+    """Groups payloads bitwise (a NaN compares as NaN), except the finite
+    f32 sums: the packages add in different orders, so they agree within
+    1e-5 of the bucket's sum of |v| (non-finite sums bitwise)."""
+    g, jg = r.groups, j.groups
+    for f in ("bucket_keys", "count", "min", "max"):
+        np.testing.assert_array_equal(_nan_words(g[f].numpy()),
+                                      _nan_words(jg[f]))
+    got, exp = g["sum"].numpy(), np.asarray(jg["sum"])
+    fin = np.isfinite(exp)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_array_equal(_nan_words(got[~fin]), _nan_words(exp[~fin]))
+    diff = np.abs(got[fin].astype(np.float64) - exp[fin])
+    assert np.all(diff <= REL_TOL * abs_sum[fin])
+    np.testing.assert_array_equal(g["ovf_keys"], np.asarray(jg["ovf_keys"]))
+    np.testing.assert_array_equal(_nan_words(g["ovf_vals"]),
+                                  _nan_words(jg["ovf_vals"]))
+
+
+def _same_merge(merged, jmerged, verb, name):
+    """Merged per-key totals: counts, min and max bitwise, finite sums
+    within 1e-5 of the key's sum of |v| (non-finite sums bitwise)."""
+    assert merged.keys() == jmerged.keys()
+    keys = sorted(jmerged)
+    abs_sum = _abs_sums(verb, name, keys)
+    for k, a in zip(keys, abs_sum):
+        c, s, mn, mx = merged[k]
+        jc, js, jmn, jmx = (np.asarray(x) for x in jmerged[k])
+        assert c == jc
+        np.testing.assert_array_equal(_nan_words(np.asarray(mn, np.float32)),
+                                      _nan_words(jmn.astype(np.float32)))
+        np.testing.assert_array_equal(_nan_words(np.asarray(mx, np.float32)),
+                                      _nan_words(jmx.astype(np.float32)))
+        s = np.asarray(s, np.float64)
+        fin = np.isfinite(js)
+        np.testing.assert_array_equal(np.isfinite(s), fin)
+        np.testing.assert_array_equal(np.isnan(s), np.isnan(js))
+        assert np.all(np.abs(s[fin] - js[fin]) <= REL_TOL * a[fin])
 
 
 def test_farview_request_and_plain_reads_match_jax(nodes):

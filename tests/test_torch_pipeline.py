@@ -207,16 +207,29 @@ def test_compile_cache_builds_once_per_signature():
     assert other is not first
 
 
+JOIN = op.JoinSmall("c0", "build", "k", ("v",))
+
+
 @pytest.mark.parametrize("pipeline,slice_no", [
-    ((op.GroupBy("c0", ("c1",)),), "slice 2"),
-    ((op.Distinct(("c0",)),), "slice 2"),
-    ((op.JoinSmall("c0", "build", "k", ("v",)),), "slice 3"),
+    ((op.Select((P("c1", "<", 0.0),)), JOIN), "slice 3"),
+    ((op.Project(("c0", "c1")), JOIN), "slice 3"),
+    ((JOIN,), "slice 3"),
     ((op.RegexMatch("ab+"),), "slice 4"),
-], ids=["groupby", "distinct", "join", "regex"])
+], ids=["join_after_select", "join_with_project", "join", "regex"])
 def test_later_slices_are_refused_at_construction(pipeline, slice_no):
     schema, _ = _schemas()
     with pytest.raises(NotImplementedError, match=slice_no):
         CompiledPipeline(schema, pipeline)
+
+
+def test_join_with_grouping_is_refused_as_in_jax():
+    schema, jschema = _schemas()
+    pipeline = (JOIN, op.GroupBy("c1", ("c2",)))
+    with pytest.raises(ValueError, match="composes with select/project"):
+        CompiledPipeline(schema, pipeline)
+    with pytest.raises(ValueError, match="composes with select/project"):
+        jax_compile(jschema, (jop.JoinSmall("c0", "build", "k", ("v",)),
+                              jop.GroupBy("c1", ("c2",))))
 
 
 def test_string_tables_are_refused():
