@@ -18,10 +18,15 @@ Phases (any failure exits non-zero; nothing is caught):
    opcode, OP_SKIP columns, n_valid tails, explicit cipher positions,
    group keys from NaN/inf/+-1e10 words and drop-key rows; group sums
    bitwise on integer values and within 1e-5 of the bucket's sum of |v|
-   on N(0,1) values; two grouping launches bitwise equal. Times each
-   (CUDA events, median of 10 after warm-up) beside its plain version,
-   a library yardstick where one exists, and its bound; the grouping's
-   bucket sort is timed on its own;
+   on N(0,1) values; two grouping launches bitwise equal; select_project
+   at 33, 64 and 128 columns and the grouping at 64 columns with 20 value
+   columns (past the caps the port had before); the join probe over B=4
+   x 2^26 rows of 3 words (probe keys with NaN/inf/+-2^31/halves, build
+   values with inf/NaN payloads/-0.0/subnormals) for builds of 512, 64,
+   2^16 and 0 keys, widened as the pipeline calls it, bitwise.
+   Times each (CUDA events, median of 10 after warm-up) beside its plain
+   version, a library yardstick where one exists, and its bound; the
+   grouping's bucket sort is timed on its own;
 4. the rows path: `FViewNode(4 GiB)` holding a 2^25-row x 8-column table
    (1 GiB, 512 pool pages; the 8-column schema of
    benchmarks/bench_selection.py) and an encrypted copy, four connections
@@ -43,7 +48,22 @@ Phases (any failure exits non-zero; nothing is caught):
    its shipped bytes against the plain path, the four partials merged
    (`merge_group_partials`) against per-key counts and float64 sums;
    then per-verb p50 and a traced round of each verb;
-6. a JSON line with every kernel's numbers, and the last line
+6. the join path, in the same node: a probe table of 2^26 rows (k an
+   i32 key uniform in [0, 1024), a and b U[0, 1): the schema of
+   benchmarks/bench_join.py, 768 MiB, 384 pool pages) and its two builds
+   of 512 and 64 unique keys (50% and 6% of probe rows match); four
+   connections (connection i reads the first 2^26 - i * 2^22 rows) each
+   submitting join on build512, join on build64, Select(a < 0.5) + join
+   and join + post-encrypt in one round. A first round checks each
+   build's keys on the host; the counted round after it is flushed under
+   sync debug mode "error", counted (one hash_join and one select_project
+   launch a dispatch) and checked against the plain path on each
+   connection's prefix (count, rows and shipped bytes bitwise); then
+   per-verb p50 and a traced round of each verb;
+7. the wide path: a 128-column table (Fig. 7's widest tuple) of 2^18
+   rows, four connections each submitting Project and SmartAddress of 3
+   columns, counted and checked the same way;
+8. a JSON line with every kernel's numbers, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits 2 without a result where torch sees no CUDA device.
@@ -85,6 +105,10 @@ N_CONNECTIONS = 4
 DROP_KEY = -2**31 + 1                 # the pipeline's masked-row group key
 GROUP_KEYS = 256                      # distinct keys of the grp table
 GROUP_REL_TOL = 1e-5                  # |sum error| <= tol * sum |v| (bucket)
+JOIN_ROWS_LOG2 = 26                   # the probe table: 2^26 rows x 3 words
+JOIN_KEYS = 1024                      # probe keys uniform in [0, 1024)
+JOIN_BUILDS = (512, 64)               # benchmarks/bench_join.py's builds
+WIDE_COLS = (33, 64, 128)             # widths past the old 32-column cap
 
 
 def parse_args(argv):
@@ -187,6 +211,8 @@ def check_select_project(sp, gen, b, n, report):
     moved = 2 * table.numel() * 4 + b * 4           # rows in, rows + counts out
     compares = b * n                                # one predicate column
     bound = max(moved / HBM_BYTES_PER_S, compares / FP32_OPS_PER_S) * 1e3
+    del table, flat, mask
+    wide_ms = check_select_project_wide(sp, gen, b, report)
     return {"name": "select_project", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/select_project.cu",
             "replaces": "src/repro/kernels/select_project.py:78",
@@ -195,7 +221,39 @@ def check_select_project(sp, gen, b, n, report):
             "bound_by": ("bytes" if moved / HBM_BYTES_PER_S
                          >= compares / FP32_OPS_PER_S else "operations"),
             "library_ms": library_ms,
-            "shape": [b, n, 8]}
+            "shape": [b, n, 8],
+            "wide_ms": wide_ms}
+
+
+def check_select_project_wide(sp, gen, b, report):
+    """Kernel vs plain past the old 32-column cap (WIDE_COLS), each stack
+    about 1 GiB: a predicate on three columns (the last among them), half
+    the columns projected. Returns {columns: kernel ms}."""
+    out = {}
+    for c in WIDE_COLS:
+        n = (1 << 26) // c
+        table = special_table(gen, (b, n, c))
+        ops = np.zeros(c, np.int32)
+        vals = np.zeros(c, np.float32)
+        ops[[1, c // 2, c - 1]] = (sp.ref.OP_LT, sp.ref.OP_GE,
+                                   sp.ref.OP_NE)
+        vals[[1, c // 2, c - 1]] = (0.5, -1.0, 0.0)
+        proj = (np.arange(c) % 2 == 0).astype(np.float32)
+        n_valid = torch.tensor([n, n - 777, n // 3, 5][:b], dtype=torch.int32,
+                               device="cuda")
+        got, cnt = sp.select_project(table, ops, vals, proj, n_valid)
+        exp, ecnt = sp.select_project_plain(table, ops, vals, proj, n_valid)
+        e = word_err(got, exp)
+        if e or not torch.equal(cnt, ecnt):
+            raise AssertionError(f"select_project at {c} columns: kernel and "
+                                 f"plain differ (word err {e})")
+        del got, exp
+        out[c] = cuda_ms(lambda: sp.select_project(table, ops, vals, proj,
+                                                   n_valid))
+        report(f"select_project {c} columns, {b}x{n} rows: counts "
+               f"{cnt.tolist()} bitwise equal, {out[c]:.3f} ms")
+        del table
+    return out
 
 
 def check_ctr_crypt(ctr, gen, b, n_words, report):
@@ -331,7 +389,10 @@ def check_hash_group(hg, ref, gen, b, n, report):
     prep_ms = cuda_ms(lambda: hg.group_prep(*args))
     prep_plain_ms = cuda_ms(lambda: hg.group_prep_plain(*args), reps=3,
                             warmup=1)
-    prep_bytes = t.numel() * 4 + keys.numel() * 4 + vals.numel() * 4
+    # the rows below n_valid are read (a row of 8 words is one 32-byte
+    # sector), keys and values are written for every row
+    prep_bytes = (int(n_valid.sum()) * t.shape[2] * 4 + keys.numel() * 4
+                  + vals.numel() * 4)
     prep_entry = {
         "name": "group_prep", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hash_group.cu",
@@ -424,7 +485,147 @@ def check_hash_group(hg, ref, gen, b, n, report):
              "sort_ms_256_buckets": times[256][1], "plain_ms": plain_ms,
              "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
              "library_ms": library_ms, "shape": [b, n, vw, 1024]}
+    wide = check_group_wide(hg, gen, b, report)
+    entry["ms_c64_v20"], prep_entry["ms_c64_v20"] = wide
     return [entry, prep_entry]
+
+
+def check_group_wide(hg, gen, b, report):
+    """group_prep and group_aggregate past the old caps: a 64-column stack
+    of 2^20 rows a request, 20 value columns (two chunks of the
+    aggregation over one bucket sort), 1024 buckets, vs the plain
+    versions. Returns the two kernels' ms."""
+    n, c = 1 << 20, 64
+    t = special_table(gen, (b, n, c))
+    t[:, :, 0] = torch.randint(0, 4096, (b, n), generator=gen,
+                               device="cuda").float()
+    ops = np.zeros(c, np.int32)
+    svals = np.zeros(c, np.float32)
+    ops[c - 1], svals[c - 1] = hg.ref.OP_LT, 1.0
+    vcols = list(range(40, 60))
+    n_valid = torch.tensor([n, n - 999, n // 2, 3][:b], dtype=torch.int32,
+                           device="cuda")
+    args = (t, 0, vcols, ops, svals, n_valid, DROP_KEY)
+    keys, vals = hg.group_prep(*args)
+    ek, ev = hg.group_prep_plain(*args)
+    if not (torch.equal(keys, ek) and word_err(vals, ev) == 0):
+        raise AssertionError("group_prep at 64 columns: kernel and plain "
+                             "differ")
+    del ek, ev
+    got = hg.group_aggregate(keys, vals, 1024)
+    exp = hg.group_aggregate_plain(keys, vals, 1024)
+    abs_sum = hg.group_aggregate_plain(keys, vals.abs(), 1024)["sum"]
+    e = same_groups(got, exp, abs_sum, "tolerance")
+    del got, exp, abs_sum
+    prep_ms = cuda_ms(lambda: hg.group_prep(*args))
+    agg_ms = cuda_ms(lambda: hg.group_aggregate(keys, vals, 1024))
+    report(f"group_prep + hash_group at {c} columns, {len(vcols)} value "
+           f"columns, {b}x{n} rows: keys and values bitwise equal, groups "
+           f"equal (sums within {e:.3g}); group_prep {prep_ms:.3f} ms, "
+           f"hash_group {agg_ms:.3f} ms")
+    return agg_ms, prep_ms
+
+
+def join_probe(gen, b, n):
+    """(B, n, 3) f32 probe stack of the join path's schema: k integer keys
+    uniform in [0, JOIN_KEYS), a and b U[0, 1); one row in a thousand has
+    a special key word (NaN, +-inf, +-2^31, halves: the saturating
+    conversion)."""
+    probe = torch.rand((b, n, 3), generator=gen, device="cuda")
+    probe[..., 0] = torch.randint(0, JOIN_KEYS, (b, n), generator=gen,
+                                  device="cuda").float()
+    words = f32_words(0x7FC00000, 0x7F800000, 0xFF800000, 0x4F000000,
+                      0xCF000000, 0x40200000, 0xBF000000, 0x40600000,
+                      0x3F000000)
+    r = torch.arange(n, device="cuda")
+    rows = r[r % 1000 == 7]
+    probe[:, rows, 0] = words[(rows // 1000) % words.numel()]
+    return probe
+
+
+def join_build(gen, k):
+    """k unique build keys (from [0, 2k) or [0, JOIN_KEYS), whichever is
+    larger, with INT32_MAX and INT32_MIN among them so that saturated
+    probe keys hit) and one value column with special words among U[0, 1)
+    values: +-inf, NaN with two payloads, -0.0 and subnormals."""
+    keys = torch.randperm(max(JOIN_KEYS, 2 * k), generator=gen,
+                          device="cuda")[:k].to(torch.int32)
+    if k >= 2:
+        keys[0], keys[1] = 2**31 - 1, -2**31
+    vals = torch.rand((k, 1), generator=gen, device="cuda")
+    specials = f32_words(0x7F800000, 0xFF800000, 0x7FC00000, 0x7FC0BEEF,
+                         0x80000000, 0x00000005, 0x807FFFFF)
+    m = min(k, specials.numel())
+    vals[:m, 0] = specials[:m]
+    return keys, vals
+
+
+def check_hash_join(hj, ref, gen, b, n, report):
+    """hash_join vs its plain version at the join path's shape: B=4 x 2^26
+    probe rows of 3 words, key column 0, widened into (B, n, 5) rows as
+    the pipeline calls it, for bench_join.py's builds of 512 and 64 keys,
+    for 2^16 keys (past what shared memory holds) and for an empty build;
+    bitwise. Times each build (CUDA events), the plain version and a
+    library yardstick at 512 keys. Returns the JSON entry."""
+    probe = join_probe(gen, b, n)
+    n_valid = torch.tensor([n, n - 12345, n // 2 + 7, 0][:b],
+                           dtype=torch.int32, device="cuda")
+    full = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    builds = {k: join_build(gen, k) for k in (512, 64, 1 << 16, 0)}
+    wide = torch.empty((b, n, 5), device="cuda")
+    err = 0
+    for k, (bk, bv) in builds.items():
+        for nv in (full, n_valid):
+            got = hj.hash_join(probe, 0, bk, bv, nv, out=wide)
+            exp = hj.hash_join_plain(probe, 0, bk, bv, nv,
+                                     out=torch.empty_like(wide))
+            e = word_err(got, exp)
+            del exp
+            if e:
+                raise AssertionError(f"hash_join K={k}: kernel and plain "
+                                     f"differ (word err {e})")
+            err = max(err, e)
+            hits = got[..., 4].sum(dim=1).long().tolist()
+            report(f"hash_join K={k} n_valid={nv.tolist()}: hits {hits}, "
+                   f"widened rows bitwise equal")
+    ms = {k: cuda_ms(lambda: hj.hash_join(probe, 0, *builds[k], full,
+                                          out=wide))
+          for k in (512, 64, 1 << 16)}
+    bk, bv = builds[512]
+    plain_ms = cuda_ms(lambda: hj.hash_join_plain(probe, 0, bk, bv, full,
+                                                  out=wide),
+                       reps=5, warmup=1)
+    # yardstick: keys already converted, the build sorted once; one
+    # searchsorted, a compare, a gather of the matched values and the
+    # widened rows built with torch.cat
+    ikeys = ref.rint_to_int32(probe[..., 0]).contiguous()
+    sk, order = torch.sort(bk)
+    sv = bv[order]
+
+    def library():
+        idx = torch.searchsorted(sk, ikeys).clamp_(max=sk.numel() - 1)
+        hit = sk[idx] == ikeys
+        return torch.cat([probe, torch.where(hit[..., None], sv[idx], 0.0),
+                          hit[..., None].float()], 2)
+    library_ms = cuda_ms(library)
+    del ikeys, wide
+    report(f"hash_join {b}x{n} rows widened to 5 words: K=512 "
+           f"{ms[512]:.3f} ms, K=64 {ms[64]:.3f} ms, K=65536 "
+           f"{ms[1 << 16]:.3f} ms; plain {plain_ms:.3f} ms, searchsorted + "
+           f"gather + cat {library_ms:.3f} ms")
+    w, v = probe.shape[2], bv.shape[1]
+    moved = b * n * w * 4 + b * n * (w + v + 1) * 4 + 512 * (1 + v) * 4
+    compares = b * n * 9                            # log2(512) a row
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = compares / INT32_OPS_PER_S
+    return {"name": "hash_join", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/hash_join.cu",
+            "replaces": "src/repro/kernels/hash_join.py:62",
+            "launches": None, "max_abs_err": float(err), "ms": ms[512],
+            "ms_k64": ms[64], "ms_k65536": ms[1 << 16],
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": [b, n, w, 512]}
 
 
 def rows_path(fv, op, sp, ctr, kernels, gen, node, qps, n_rows, report):
@@ -746,6 +947,177 @@ def group_path(fv, op, hg, sp, kernels, gen, node, qps, n_rows, report):
     return launches, p50
 
 
+def plain_join(hj, sp, ctr, op, words, bk, bv, pipe, n_valid):
+    """One join request's rows computed by the plain versions alone from
+    the probe table's words (n, 3), of which the first n_valid rows are
+    the request's: probe, the widened table, select/project/pack (the hit
+    column an ==1 predicate, zeroed), then the response cipher."""
+    rows = words[:n_valid][None]
+    nv = torch.tensor([n_valid], dtype=torch.int32, device="cuda")
+    wide = hj.hash_join_plain(rows, 0, bk, bv, nv)
+    c = wide.shape[2]
+    ops = np.zeros(c, np.int32)
+    vals = np.zeros(c, np.float32)
+    proj = np.ones(c, np.float32)
+    ops[-1], vals[-1], proj[-1] = op.OPS["=="], 1.0, 0.0
+    for o in pipe:
+        if isinstance(o, op.Select):
+            for pr in o.predicates:
+                i = ("k", "a", "b").index(pr.col)
+                ops[i], vals[i] = op.OPS[pr.op], pr.value
+    packed, cnt = sp.select_project_plain(wide, ops, vals, proj, nv)
+    if isinstance(pipe[-1], op.Crypt):
+        packed = ctr.ctr_crypt_plain(
+            packed.view(torch.int32).view(1, -1), pipe[-1].key,
+            pipe[-1].nonce).view(torch.float32).view(packed.shape)
+    return packed[0], int(cnt[0])
+
+
+def join_path(fv, op, hj, sp, ctr, kernels, gen, node, qps, report):
+    """Drive the join verbs through the node: a probe table of 2^26 rows
+    and bench_join.py's two builds. A cold round checks each build's keys
+    on the host; the counted warm round after it flushes under sync debug
+    mode "error". Returns the counted run's launches and per-verb p50s."""
+    n_rows = 1 << JOIN_ROWS_LOG2
+    ft = fv.alloc_table_mem(qps[0], fv.FTable(
+        "probe", (fv.Column("k", "i32"), fv.Column("a"), fv.Column("b")),
+        n_rows=n_rows))
+    words = torch.rand((n_rows, 3), generator=gen, device="cuda")
+    words[:, 0] = torch.randint(0, JOIN_KEYS, (n_rows,), generator=gen,
+                                device="cuda").float()
+    fv.table_write(qps[0], ft, words)
+    builds = {}
+    for k in JOIN_BUILDS:
+        bft = fv.alloc_table_mem(qps[0], fv.FTable(
+            f"build{k}", (fv.Column("k", "i32"), fv.Column("v")), n_rows=k))
+        bk = torch.randperm(JOIN_KEYS, generator=gen,
+                            device="cuda")[:k].to(torch.int32)
+        bv = torch.rand((k, 1), generator=gen, device="cuda")
+        fv.table_write(qps[0], bft, torch.cat([bk[:, None].float(), bv], 1))
+        builds[k] = (bk, bv)
+    views = [dataclasses.replace(ft, n_rows=n_rows - i * (n_rows // 16))
+             for i in range(len(qps))]
+    match = {k: float(torch.isin(words[:, 0].to(torch.int32), bk).double()
+                      .mean()) for k, (bk, _) in builds.items()}
+    report(f"pool: table probe of {len(ft.pages)} pages, builds of "
+           f"{JOIN_BUILDS} keys matching {match} of its rows; connections "
+           f"read its first {[v.n_rows for v in views]} rows")
+
+    def join(k):
+        return op.JoinSmall("k", f"build{k}", "k", ("v",))
+    verbs = {
+        "join_512": (views, (join(512),)),
+        "join_64": (views, (join(64),)),
+        "selection_join_512": (views, (
+            op.Select((op.Predicate("a", "<", 0.5),)), join(512))),
+        "join_512_post_encrypt": (views, (
+            join(512), op.Crypt(KEY_POST, NONCE_POST, "post"))),
+    }
+    # the cold round: each build's keys are checked unique on the host
+    for t, p in verbs.values():
+        for r in submit_round(fv, qps, t, p):
+            r.wait()
+
+    reset_launches(kernels)
+    d0 = node.dispatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    pending = {name: submit_round(fv, qps, t, p)
+               for name, (t, p) in verbs.items()}
+    node.flush()
+    torch.cuda.set_sync_debug_mode("default")
+    results = {name: [r.wait() for r in reqs]
+               for name, reqs in pending.items()}
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches(kernels)
+    dispatches = node.dispatches - d0
+    report(f"join path: {N_CONNECTIONS * len(verbs)} requests in "
+           f"{dispatches} dispatches, {run_ms:.3f} ms, launches {launches}, "
+           f"a warm round with no host sync before finalize")
+    if dispatches != len(verbs):
+        raise AssertionError(f"{dispatches} dispatches for {len(verbs)} "
+                             f"distinct signatures: requests did not stack")
+    if launches["hash_join"] != dispatches or \
+            launches["select_project"] != dispatches:
+        raise AssertionError(f"join path: expected one hash_join and one "
+                             f"select_project launch a dispatch, got "
+                             f"{launches}")
+    if launches["ctr_crypt"] != 1:
+        raise AssertionError("join path: the post-encrypt verb did not "
+                             "launch ctr_crypt once")
+
+    for name, res_list in results.items():
+        pipe = verbs[name][1]
+        k = 64 if name == "join_64" else 512
+        for view, res in zip(views, res_list):
+            rows, cnt = plain_join(hj, sp, ctr, op, words, *builds[k], pipe,
+                                   view.n_rows)
+            if res.count != cnt or word_err(res.rows, rows):
+                raise AssertionError(f"{name}: result differs from the "
+                                     f"plain path")
+            if res.shipped_bytes != cnt * (3 + 1) * 4:
+                raise AssertionError(f"{name}: shipped bytes "
+                                     f"{res.shipped_bytes}")
+            if res.read_bytes != view.n_rows * 3 * 4:
+                raise AssertionError(f"{name}: read bytes {res.read_bytes}")
+            del rows
+        report(f"{name}: counts {[r.count for r in res_list]}, "
+               f"{N_CONNECTIONS} results bitwise equal to the plain path")
+    del results, pending
+    p50 = verb_p50(fv, node, qps, verbs, report)
+    profile_rounds(fv, node, qps, verbs, report)
+    return launches, p50
+
+
+def wide_path(fv, op, sp, kernels, gen, node, qps, report):
+    """Project and SmartAddress of 3 columns over a 128-column table (Fig.
+    7's widest tuple, benchmarks/bench_projection.py) through the node,
+    counted and checked against the plain path. Returns the launches and
+    per-verb p50s."""
+    n_rows, c = 1 << 18, 128
+    ft = fv.alloc_table_mem(qps[0], fv.FTable(
+        "wide", tuple(fv.Column(f"c{i}") for i in range(c)), n_rows=n_rows))
+    words = torch.randn((n_rows, c), generator=gen, device="cuda")
+    fv.table_write(qps[0], ft, words)
+    cols = ("c0", "c1", "c2")
+    verbs = {"projection_128": (ft, (op.Project(cols),)),
+             "smart_addressing_128": (ft, (op.SmartAddress(cols),))}
+    reset_launches(kernels)
+    pending = {name: submit_round(fv, qps, t, p)
+               for name, (t, p) in verbs.items()}
+    node.flush()
+    results = {name: [r.wait() for r in reqs]
+               for name, reqs in pending.items()}
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    if launches["select_project"] != len(verbs):
+        raise AssertionError(f"wide path: launches {launches}")
+    nv = torch.tensor([n_rows], dtype=torch.int32, device="cuda")
+    proj = np.zeros(c, np.float32)
+    proj[:3] = 1
+    expected = {
+        "projection_128": (sp.select_project_plain(
+            words[None], np.zeros(c, np.int32), np.zeros(c, np.float32),
+            proj, nv)[0][0], n_rows * c * 4),
+        "smart_addressing_128": (words[:, :3], n_rows * 3 * 4),
+    }
+    for name, res_list in results.items():
+        rows, read = expected[name]
+        for res in res_list:
+            if (res.count != n_rows or word_err(res.rows, rows)
+                    or res.shipped_bytes != n_rows * 3 * 4
+                    or res.read_bytes != read):
+                raise AssertionError(f"{name}: result differs from the "
+                                     f"plain path")
+        report(f"{name}: {N_CONNECTIONS} results of {n_rows} rows x "
+               f"{res_list[0].rows.shape[1]} words bitwise equal to the "
+               f"plain path, read {read} bytes each")
+    del results, pending, expected
+    return launches, verb_p50(fv, node, qps, verbs, report)
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -766,13 +1138,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ctr_crypt as ctr
     from repro_torch.kernels import hash_group as hg
+    from repro_torch.kernels import hash_join as hj
     from repro_torch.kernels import ref
     from repro_torch.kernels import select_project as sp
     # every kernel wrapper's launch counter, by the JSON line's names
     kernels = {"select_project": sp.select_project,
                "ctr_crypt": ctr.ctr_crypt,
                "hash_group": hg.group_aggregate,
-               "group_prep": hg.group_prep}
+               "group_prep": hg.group_prep,
+               "hash_join": hj.hash_join}
 
     def report(line):
         print(line, flush=True)
@@ -803,6 +1177,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     entries += check_hash_group(hg, ref, gen, N_CONNECTIONS, n, report)
     torch.cuda.empty_cache()
+    entries.append(check_hash_join(hj, ref, gen, N_CONNECTIONS,
+                                   1 << JOIN_ROWS_LOG2, report))
+    torch.cuda.empty_cache()
 
     node = fv.FViewNode(4 * 2**30, device="cuda")
     qps = [fv.open_connection(node) for _ in range(N_CONNECTIONS)]
@@ -812,11 +1189,20 @@ def main(argv=None) -> int:
     group_launches, group_p50 = group_path(fv, op, hg, sp, kernels, gen,
                                            node, qps, n, report)
     p50.update(group_p50)
+    torch.cuda.empty_cache()
+    join_launches, join_p50 = join_path(fv, op, hj, sp, ctr, kernels, gen,
+                                        node, qps, report)
+    p50.update(join_p50)
+    torch.cuda.empty_cache()
+    wide_launches, wide_p50 = wide_path(fv, op, sp, kernels, gen, node, qps,
+                                        report)
+    p50.update(wide_p50)
     for qp in qps:
         fv.close_connection(qp)
-    # launches: the counted runs of both paths together
+    # launches: the counted runs of all paths together
     for e in entries:
-        e["launches"] = rows_launches[e["name"]] + group_launches[e["name"]]
+        e["launches"] = sum(run[e["name"]] for run in (
+            rows_launches, group_launches, join_launches, wide_launches))
     report(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     report(f"p50 ms per verb: {json.dumps(p50)}")
     print(json.dumps({"kernels": entries}))

@@ -8,9 +8,10 @@ every kernel on the request path is a hand-written CUDA kernel
 (`kernels/csrc/`), on the CPU its plain torch version runs instead.
 
 The verb API re-exported here covers the ported slices: selection,
-projection, smart addressing and CTR crypt (rows kind), GroupBy and
-Distinct (groups kind, merged client-side by `merge_group_partials`),
-over word tables.
+projection, smart addressing and CTR crypt (rows kind), the small-table
+join `JoinSmall` (rows kind, its build table read from the node's pool at
+every dispatch), GroupBy and Distinct (groups kind, merged client-side by
+`merge_group_partials`), over word tables of any width.
 """
 from repro_torch.core.client import (FViewNode, PendingRequest, QPair,
                                      alloc_table_mem, close_connection,

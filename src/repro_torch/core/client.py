@@ -1,5 +1,6 @@
 """Farview programmatic interface + multi-client scheduler (port of
-`repro/core/client.py`: rows-kind and groups-kind verbs over word tables).
+`repro/core/client.py`: rows-kind verbs, the small-table join and
+groups-kind verbs over word tables).
 
 Mirrors the paper's API surface:
 
@@ -46,6 +47,7 @@ from repro_torch.core.pipeline import (PipelineResult, compile_pipeline,
                                       resolve_device)
 from repro_torch.core.pool import PAGE_BYTES, FarPool
 from repro_torch.core.table import Column, FTable, WORD_BYTES
+from repro_torch.kernels import ref as kref
 
 
 class QPair:
@@ -330,6 +332,25 @@ class FViewNode:
                 req.ft.row_words, op_ir.pow2_bucket(req.ft.n_rows),
                 req.row_ids is not None)
 
+    def _resolve_build(self, pipeline: tuple):
+        """The node reads the join build table into "on-chip memory"
+        (paper §Conclusions future work) and matches the stream against it.
+        The read runs on the node's device at every dispatch and is billed
+        to the pool, as the reference node bills it; the build is named by
+        its table id and write generation, under which the pipeline caches
+        its verdict that the keys are unique."""
+        join = op_ir.join_small_of(pipeline)
+        if join is None:
+            return None
+        bft = self.tables[join.build_table]
+        brows = self.pool.read_table(bft)
+        bkeys = kref.rint_to_int32(brows[:, bft.col_index(join.build_key)])
+        # column by column: an index list would upload with a host sync
+        cols = [brows[:, bft.col_index(c)] for c in join.build_cols]
+        bvals = torch.stack(cols, 1) if cols else brows[:, :0]
+        name = ("build", bft.table_id, self.pool.generation(bft))
+        return bkeys, bvals, name
+
     def _dispatch(self, reqs: list[PendingRequest]) -> None:
         ft0 = reqs[0].ft
         sig = op_ir.signature(reqs[0].pipeline)
@@ -342,7 +363,9 @@ class FViewNode:
         if len(reqs) == 1:
             req = reqs[0]
             results = [pipe.run_pages(self.pool.buf, req.ft.pages,
-                                      req.ft.n_rows, n_rows=req.ft.n_rows,
+                                      req.ft.n_rows,
+                                      self._resolve_build(req.pipeline),
+                                      n_rows=req.ft.n_rows,
                                       row_words=req.ft.row_words,
                                       row_ids=req.row_ids)]
         else:
@@ -370,6 +393,7 @@ class FViewNode:
             for b, r in enumerate(reqs):
                 row_ids[b, : r.ft.n_rows] = r.row_ids    # tails masked
         return pipe.run_pages_batched(self.pool.buf, pages, n_valid,
+                                      self._resolve_build(reqs[0].pipeline),
                                       n_rows=bucket, row_words=row_words,
                                       row_ids=row_ids)
 

@@ -1,30 +1,40 @@
 """Pipeline compiler (port of `repro/core/pipeline.py`): the rows kind
-and the groups kind over word tables.
+(with the small-table join) and the groups kind over word tables.
 
 `compile_pipeline(schema, pipeline)` returns a `CompiledPipeline` whose
-request path — pool-page gather, pre-decrypt, smart addressing, fused
-select/project/pack or group-aggregate, post-encrypt and response byte
-accounting — runs as one sequence of device operations with no host
-round trip. On the card the cipher passes, the select/project/pack pass
-and the grouping passes are the hand-written CUDA kernels of
-`repro_torch.kernels`; on the CPU their plain torch versions run
-(`kernels/ops.py` dispatches on the tensor's device).
+request path — pool-page gather, pre-decrypt, smart addressing, join
+probe, fused select/project/pack or group-aggregate, post-encrypt and
+response byte accounting — runs as one sequence of device operations
+with no host round trip. On the card the cipher passes, the join probe,
+the select/project/pack pass and the grouping passes are the
+hand-written CUDA kernels of `repro_torch.kernels`; on the CPU their
+plain torch versions run (`kernels/ops.py` dispatches on the tensor's
+device).
 
-Entry points (each takes an optional `row_ids` for partition dispatch):
+Entry points (each takes an optional `row_ids` for partition dispatch,
+and a JoinSmall pipeline its build as `build=(keys, vals)`):
 
   pipe(rows, device=...)                       rows already materialized
   pipe.run_pages(buf, pages, n_valid, ...)     gather + pipeline, one request
   pipe.run_pages_batched(buf, pages, n_valid, ...)   stacked round: pages
       (B, P), n_valid (B,). The stack axis B is explicit all the way down:
-      every kernel takes it in its grid, with a per-request n_valid.
+      every kernel takes it in its grid, with a per-request n_valid; one
+      join build serves the whole stack.
 
 Every entry point returns lazy `PipelineResult`s: device tensors plus
 device count/byte scalars. `PipelineResult.finalize()` is the ONLY sync
 point: for groups it also copies the packed collision rows to the host.
 
-The JAX pipeline also runs join probes and regex over string tables.
-Those come in later slices of the port (ROADMAP.md queue 1); this
-pipeline refuses them at construction rather than run them some other way.
+Under SmartAddress the body sees only the addressed columns, and the
+grouping, distinct and probe-key columns are resolved among them (a
+column the SmartAddress does not read raises KeyError at construction).
+The JAX pipeline indexes that narrowed work with full-schema indices,
+which clamp to other columns; the port gives the result of the JAX
+`Project` form instead (ROADMAP.md queue 3).
+
+The JAX pipeline also runs regex over string tables. That comes in a
+later slice of the port (ROADMAP.md queue 1); this pipeline refuses it at
+construction rather than run it some other way.
 """
 from __future__ import annotations
 
@@ -40,15 +50,21 @@ from repro_torch.core.errors import FarviewError
 from repro_torch.core.table import FTable, WORD_BYTES
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels._build import upload as _upload
 
 _DROP_KEY = kref.KEY_SENTINEL + 1     # masked-row group key (never in data)
 
 # operator -> the ROADMAP.md queue-1 slice that brings it to the port
 _LATER_SLICES = {
-    op_ir.JoinSmall: "slice 3 (JoinSmall with the hash_join kernel)",
     op_ir.RegexMatch: "slice 4 (regex over string tables with the dfa_match "
                       "kernel)",
 }
+
+# join builds whose keys were found unique, by the name their caller
+# gives them (the node's: build table id and write generation)
+_UNIQUE_BUILDS: set = set()      # guarded-by: _UNIQUE_LOCK
+_UNIQUE_LOCK = threading.Lock()
+_UNIQUE_MAX = 4096               # names kept before the set starts over
 
 
 def resolve_device(device, caller: str) -> torch.device:
@@ -61,16 +77,6 @@ def resolve_device(device, caller: str) -> torch.device:
                 "available; pass device='cpu' to run the plain versions")
         return torch.device("cuda")
     return torch.device(device)
-
-
-def _upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """Host values -> a tensor on `device` without synchronising: on the
-    card through pinned memory and a non-blocking copy (a copy from
-    pageable host memory waits for the stream's queued work)."""
-    t = torch.as_tensor(values, dtype=dtype)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -215,6 +221,7 @@ class CompiledPipeline:
         self.crypt_post: op_ir.Crypt | None = None
         self.group: op_ir.GroupBy | None = None
         self.distinct: op_ir.Distinct | None = None
+        self.join: op_ir.JoinSmall | None = None
         for op in pipeline:
             if isinstance(op, op_ir.Project):
                 self.proj_cols = [self._col(c) for c in op.cols]
@@ -232,6 +239,8 @@ class CompiledPipeline:
                 self.group = op
             elif isinstance(op, op_ir.Distinct):
                 self.distinct = op
+            elif isinstance(op, op_ir.JoinSmall):
+                self.join = op
             elif isinstance(op, op_ir.Crypt):
                 if op.when == "pre":
                     self.crypt_pre = op
@@ -239,6 +248,20 @@ class CompiledPipeline:
                     self.crypt_post = op
         self.kind = ("groups" if (self.group is not None
                                   or self.distinct is not None) else "rows")
+        # the columns the body reads, as indices into the work it sees
+        grouping = self.group or self.distinct
+        if grouping is not None:
+            nb = grouping.n_buckets
+            if nb < 1 or nb & (nb - 1):
+                raise ValueError(f"n_buckets must be a power of 2, got {nb}")
+        if self.group is not None:
+            self.key_col = self._work_col(self.group.key)
+            self.val_cols = [self._work_col(c) for c in self.group.values]
+        elif self.distinct is not None:
+            self.key_col = self._work_col(self.distinct.cols[0])
+            self.val_cols = [self.key_col]
+        if self.join is not None:
+            self.probe_col = self._work_col(self.join.probe_key)
 
     def _col(self, name: str) -> int:
         try:
@@ -246,27 +269,49 @@ class CompiledPipeline:
         except ValueError:
             raise KeyError(f"no column {name!r}") from None
 
+    def _work_col(self, name: str) -> int:
+        """Column `name`'s index in the work the body sees: among
+        SmartAddress's columns when the plan narrows (a column it does not
+        read raises KeyError), else among the table's."""
+        i = self._col(name)
+        if not self.smart:
+            return i
+        try:
+            return self.proj_cols.index(i)
+        except ValueError:
+            read = tuple(self._cols[c] for c in self.proj_cols)
+            raise KeyError(f"column {name!r} is not among the columns "
+                           f"SmartAddress reads {read}") from None
+
     @property
     def response_width(self) -> int:
         """Column count of the packed response buffer: narrowed to the
-        projection under smart addressing, otherwise the full table width."""
+        projection under smart addressing, otherwise the full table width;
+        a join adds its build columns and the (zeroed) hit column."""
         if self.smart and self.proj_cols is not None:
-            return len(self.proj_cols)
-        return self._n_cols
+            width = len(self.proj_cols)
+        else:
+            width = self._n_cols
+        if self.join is not None:
+            width += len(self.join.build_cols) + 1
+        return width
 
     # ------------------------------------------------------------ public API
-    def __call__(self, rows, row_ids=None, *, device=None) -> PipelineResult:
+    def __call__(self, rows, row_ids=None, *, build=None,
+                 device=None) -> PipelineResult:
         """Rows already materialized: (n, w) f32, numpy or a tensor, moved
         to `device` (None means the CUDA card; pass "cpu" for the plain
         versions). `row_ids` (optional, (n,)) are the rows' indices in the
         original un-partitioned table: they key the positional CTR
-        keystream and ride the packing as survivor ids."""
+        keystream and ride the packing as survivor ids. `build` is a
+        JoinSmall pipeline's build table (see `_as_build`)."""
         device = resolve_device(device, "CompiledPipeline.__call__")
         rows = torch.as_tensor(rows, dtype=torch.float32).to(device)
         n = int(rows.shape[0])
         n_valid = torch.full((1,), n, dtype=torch.int32, device=rows.device)
         payload = self._body(rows[None], n_valid,
                              self._as_ids(row_ids, rows.device, 1),
+                             self._as_build(build, rows.device),
                              narrowed=False)
         if self._columnar_read():
             read_bytes = n * len(self.proj_cols) * WORD_BYTES
@@ -274,30 +319,33 @@ class CompiledPipeline:
             read_bytes = int(np.prod(rows.shape)) * WORD_BYTES
         return self._wrap(self._split(payload, 0, n), read_bytes)
 
-    def run_pages(self, buf: torch.Tensor, pages, n_valid: int, *,
-                  n_rows: int, row_words: int,
+    def run_pages(self, buf: torch.Tensor, pages, n_valid: int, build=None,
+                  *, n_rows: int, row_words: int,
                   row_ids=None) -> PipelineResult:
         """The fused request verb for one request: page gather + pipeline.
 
         buf: pool buffer (n_pages, page_words); pages: (P,) page ids;
-        n_valid: rows >= n_valid are masked; row_ids: optional (n_rows,)
-        original-table row indices."""
+        n_valid: rows >= n_valid are masked; build: a JoinSmall
+        pipeline's build table; row_ids: optional (n_rows,) original-table
+        row indices."""
         pages = _upload(pages, torch.int64, buf.device)
         nv = torch.full((1,), int(n_valid), dtype=torch.int32,
                         device=buf.device)
         payload = self._gather_run(buf, pages[None], nv,
                                    self._as_ids(row_ids, buf.device, 1),
+                                   self._as_build(build, buf.device),
                                    n_rows, row_words)
         return self._wrap(self._split(payload, 0, n_rows),
                           self._pages_read_bytes(n_rows, row_words))
 
-    def run_pages_batched(self, buf: torch.Tensor, pages, n_valid, *,
-                          n_rows: int, row_words: int,
+    def run_pages_batched(self, buf: torch.Tensor, pages, n_valid,
+                          build=None, *, n_rows: int, row_words: int,
                           row_ids=None) -> list[PipelineResult]:
         """Stacked multi-client dispatch: pages (B, P), n_valid (B,) host ints.
 
         One pass over the whole stack serves the scheduling round; the
-        payload is split back into per-client lazy results. `n_rows` is the
+        payload is split back into per-client lazy results. A JoinSmall
+        `build` is one table shared by the whole stack. `n_rows` is the
         round's shape bucket: per-request tables may be smaller, their page
         lists padded with the pool null page and their tails masked by
         `n_valid`. Read bytes bill each request's own rows; shipped bytes
@@ -308,7 +356,8 @@ class CompiledPipeline:
         b = int(pages.shape[0])
         payload = self._gather_run(
             buf, pages, _upload(nv, torch.int32, buf.device),
-            self._as_ids(row_ids, buf.device, b), n_rows, row_words)
+            self._as_ids(row_ids, buf.device, b),
+            self._as_build(build, buf.device), n_rows, row_words)
         return [self._wrap(self._split(payload, i, int(nv[i])),
                            self._pages_read_bytes(int(nv[i]), row_words))
                 for i in range(b)]
@@ -336,6 +385,40 @@ class CompiledPipeline:
         ids = np.asarray(row_ids, np.int64).reshape(b, -1).astype(np.int32)
         return _upload(ids, torch.int32, device)
 
+    def _as_build(self, build, device):
+        """A JoinSmall pipeline's build operand on `device`: (keys (K,)
+        int32, vals (K, V) f32) from `build` = (keys, vals) or (keys, vals,
+        name). Its keys are checked unique on the host before launch, as
+        the reference checks them eagerly. `name`, a hashable name of the
+        build's content (the node gives its build table's id and write
+        generation), caches the verdict: a build already found unique is
+        not read back again, so a warm round does not wait for the card.
+        Other pipelines take no build (and ignore one, as the reference
+        does)."""
+        if self.join is None:
+            return None
+        if build is None:
+            raise ValueError("JoinSmall needs build=(keys, vals)")
+        keys, vals, *name = build
+        keys = torch.as_tensor(keys).to(device=device, dtype=torch.int32)
+        vals = torch.as_tensor(vals).to(device=device, dtype=torch.float32)
+        v = len(self.join.build_cols)
+        if vals.dim() != 2 or tuple(vals.shape) != (keys.shape[0], v):
+            raise ValueError(f"the build's values are {tuple(vals.shape)}, "
+                             f"the join needs ({keys.shape[0]}, {v}) value "
+                             "columns")
+        key = name[0] if name else None
+        with _UNIQUE_LOCK:
+            known = key is not None and key in _UNIQUE_BUILDS
+        if not known:
+            kops.check_build_unique(keys)
+            if key is not None:
+                with _UNIQUE_LOCK:
+                    if len(_UNIQUE_BUILDS) >= _UNIQUE_MAX:
+                        _UNIQUE_BUILDS.clear()
+                    _UNIQUE_BUILDS.add(key)
+        return keys, vals
+
     def _columnar_read(self) -> bool:
         """True when the plan gathers column-granular (a pre-decrypt forces
         full-row reads: the CTR keystream is positional over the row)."""
@@ -356,17 +439,19 @@ class CompiledPipeline:
         return PipelineResult(self.kind, read_bytes=read_bytes, _raw=payload,
                               _meta=meta)
 
-    def _gather_run(self, buf, pages, n_valid, row_ids, n_rows, row_words):
+    def _gather_run(self, buf, pages, n_valid, row_ids, build, n_rows,
+                    row_words):
         if self._columnar_read():
             work = fpool.gather_columns(
                 buf, pages, n_rows, row_words,
                 _upload(self.proj_cols, torch.int64, buf.device))
-            return self._body(work, n_valid, row_ids, narrowed=True)
+            return self._body(work, n_valid, row_ids, build, narrowed=True)
         rows = fpool.gather_rows(buf, pages, n_rows, row_words)
-        return self._body(rows, n_valid, row_ids, narrowed=False)
+        return self._body(rows, n_valid, row_ids, build, narrowed=False)
 
     def _body(self, work: torch.Tensor, n_valid: torch.Tensor,
-              row_ids: torch.Tensor | None, *, narrowed: bool) -> dict:
+              row_ids: torch.Tensor | None, build, *,
+              narrowed: bool) -> dict:
         """The whole request pipeline over a (B, n, w) stack of requests."""
         b, n, w = work.shape
 
@@ -393,23 +478,46 @@ class CompiledPipeline:
             eff_sel_ops = self.sel_ops[self.proj_cols]
             eff_sel_vals = self.sel_vals[self.proj_cols]
             eff_proj = np.ones((len(self.proj_cols),), np.float32)
-            ncols_out = len(self.proj_cols)
         else:
             eff_sel_ops = self.sel_ops
             eff_sel_vals = self.sel_vals
             eff_proj = self.proj_mask
-            ncols_out = int(np.sum(eff_proj))
 
         # -- grouping ---------------------------------------------------------
         if self.kind == "groups":
             return self._group_body(work, eff_sel_ops, eff_sel_vals, n_valid)
 
-        # -- survivor-id column: partitioned dispatch threads each row's
-        # original-table index through the packing (predicate-skipped,
-        # projection-kept); split off before the response encrypt -----------
+        # -- the widened select/project input: the join's matched build
+        # values and an ==1 hit column (kept for the predicate, zeroed in
+        # the projection), then the survivor-id column of partitioned
+        # dispatch (predicate-skipped, projection-kept; split off before the
+        # response encrypt). The probe writes the rows and its columns
+        # straight into it.
+        w = work.shape[2]
+        v = 0 if self.join is None else build[1].shape[1]
+        n_extra = (0 if self.join is None else v + 1) + (row_ids is not None)
+        if n_extra:
+            wide = torch.empty((b, n, w + n_extra), dtype=torch.float32,
+                               device=work.device)
+            if self.join is None:
+                wide[..., :w] = work
+            else:
+                kops.hash_join(work, self.probe_col, build[0], build[1],
+                               n_valid, out=wide)
+            work = wide
+        if self.join is not None:
+            eff_sel_ops = np.concatenate(
+                [eff_sel_ops, np.zeros(v, np.int32),
+                 np.asarray([op_ir.OPS["=="]], np.int32)])
+            eff_sel_vals = np.concatenate(
+                [eff_sel_vals, np.zeros(v, np.float32),
+                 np.asarray([1.0], np.float32)])
+            eff_proj = np.concatenate(
+                [eff_proj, np.ones(v, np.float32), np.zeros(1, np.float32)])
+        # response width BEFORE the id column: the projected columns
+        ncols_out = int(np.sum(eff_proj))
         if row_ids is not None:
-            work = torch.cat([work, row_ids.to(torch.float32)[:, :, None]],
-                             dim=2)
+            work[..., -1] = row_ids.to(torch.float32)
             eff_sel_ops = np.append(eff_sel_ops, np.int32(0))
             eff_sel_vals = np.append(eff_sel_vals, np.float32(0))
             eff_proj = np.append(eff_proj, np.float32(1))
@@ -441,14 +549,8 @@ class CompiledPipeline:
         """Grouping over the (B, n, w) stack: selected rows below n_valid
         aggregate into the bucket tables; the others carry _DROP_KEY (and
         still claim buckets, as in the reference)."""
-        if self.group is not None:
-            kcol = self._col(self.group.key)
-            vcols = [self._col(c) for c in self.group.values]
-            nb = self.group.n_buckets
-        else:
-            kcol = self._col(self.distinct.cols[0])
-            vcols = [kcol]
-            nb = self.distinct.n_buckets
+        kcol, vcols = self.key_col, self.val_cols
+        nb = (self.group or self.distinct).n_buckets
         b, n, _ = work.shape
         v = len(vcols)
         keys, vals = kops.group_prep(work.contiguous(), kcol, vcols, sel_ops,

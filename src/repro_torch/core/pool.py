@@ -8,9 +8,16 @@ with the tiering slice (ROADMAP.md queue 1, slice 5).
 The read path is device-resident: `gather_rows` / `gather_columns` are
 pure functions of `(buf, pages)`, which the pipeline calls directly, so
 a request's pool read is part of its dispatch.
+
+Every table carries a write generation (`FarPool.generation`), a number
+drawn anew from a process-wide counter whenever the table's words may
+change: on alloc, write, free and adopt. (table id, generation) therefore
+names one content of one table, and keys what is cached about it (the
+join's verdict that a build table's keys are unique).
 """
 from __future__ import annotations
 
+import itertools
 import math
 from collections import deque
 from dataclasses import dataclass
@@ -19,8 +26,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.table import FTable, WORD_BYTES
+from repro_torch.kernels import _build
 
 PAGE_BYTES = 2 * 1024 * 1024
+# write generations: process-wide, so no (table id, generation) pair
+# repeats, across pools or after an adopt reuses table ids
+_GENERATIONS = itertools.count(1)
 
 
 # ---------------------------------------------------------------- read path
@@ -76,9 +87,17 @@ class FarPool:
             deque(range(s * self.chunk, (s + 1) * self.chunk))
             for s in range(n_shards)]
         self._next_table_id = 0
+        self._generation: dict[int, int] = {}    # table_id -> generation
         self.stats = PoolStats()
 
     # ------------------------------------------------------------------ mgmt
+    def generation(self, ft: FTable) -> int:
+        """The table's write generation: changes whenever its words may."""
+        return self._generation.get(ft.table_id, 0)
+
+    def _touch(self, table_id: int) -> None:
+        self._generation[table_id] = next(_GENERATIONS)
+
     @property
     def free_pages(self) -> int:
         return sum(len(f) for f in self._free)
@@ -99,11 +118,13 @@ class FarPool:
         ft.table_id = self._next_table_id
         self._next_table_id += 1
         ft.pages = tuple(pages)
+        self._touch(ft.table_id)
         return ft
 
     def free_table(self, ft: FTable) -> None:
         for p in ft.pages:
             self._free[p // self.chunk].append(p)
+        self._touch(ft.table_id)
         ft.pages = ()
         ft.table_id = -1
 
@@ -124,10 +145,14 @@ class FarPool:
                       for s in range(self.n_shards)]
         self._next_table_id = max((ft.table_id for ft in tables),
                                   default=-1) + 1
+        for ft in tables:
+            self._touch(ft.table_id)
 
     # ------------------------------------------------------------------- I/O
     def pages_of(self, ft: FTable) -> torch.Tensor:
-        return torch.tensor(ft.pages, dtype=torch.int64, device=self.device)
+        """The table's page ids on the pool's device, uploaded without a
+        host sync."""
+        return _build.upload(ft.pages, torch.int64, self.device)
 
     def write_table(self, ft: FTable, words) -> None:
         """words: (n_rows, row_words) f32 (numpy or tensor)."""
@@ -137,6 +162,7 @@ class FarPool:
                              dtype=torch.float32, device=self.device)
         padded[: flat.shape[0]] = flat.to(self.device)
         self.buf[self.pages_of(ft)] = padded.reshape(n_pages, self.page_words)
+        self._touch(ft.table_id)
         self.stats.bytes_written += int(flat.shape[0]) * WORD_BYTES
 
     def read_table(self, ft: FTable) -> torch.Tensor:

@@ -22,19 +22,21 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("select_project.cu", "ctr_crypt.cu", "hash_group.cu")
+SOURCES = ("select_project.cu", "ctr_crypt.cu", "hash_group.cu",
+           "hash_join.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 _SIGNATURES = {
     "select_project.cu": {
-        "sp_count": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
-        "sp_pack": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
+        "sp_count": ([_P, _P, _I, _P, _P, _LL, _I, _I, _P], _I),
+        "sp_pack": ([_P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
         "sp_rows_per_block": ([], _I),
-        "sp_max_cols": ([], _I),
         "sp_error_string": ([_I], ctypes.c_char_p),
     },
     "ctr_crypt.cu": {
@@ -42,16 +44,21 @@ _SIGNATURES = {
         "ctr_error_string": ([_I], ctypes.c_char_p),
     },
     "hash_group.cu": {
-        "hg_prep": ([_P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _LL, _I,
-                     _P], _I),
+        "hg_prep": ([_P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _LL, _I, _P],
+                    _I),
         "hg_bucket": ([_P, _P, _LL, _I, _I, _P], _I),
         "hg_claim": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
-        "hg_aggregate": ([_P] * 15 + [_LL, _I, _I, _I, _I, _P], _I),
+        "hg_aggregate": ([_P] * 15 + [_LL, _I, _I, _I, _I, _I, _I, _P],
+                         _I),
         "hg_piece_rows": ([], _I),
         "hg_overflow": ([_P, _P, _P, _LL, _I, _I, _P], _I),
         "hg_max_vals": ([], _I),
-        "hg_max_cols": ([], _I),
         "hg_error_string": ([_I], ctypes.c_char_p),
+    },
+    "hash_join.cu": {
+        "hj_probe": ([_P, _LL, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _LL,
+                      _I, _P], _I),
+        "hj_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -129,6 +136,16 @@ def lib(src: str) -> ctypes.CDLL:
     with _LOCK:
         found = _LIBS.get(src)
     return found if found is not None else load_all()[src]
+
+
+def upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host values -> a tensor on `device` without synchronising: on the
+    card through pinned memory and a non-blocking copy (a copy from
+    pageable host memory waits for the stream's queued work)."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def check(code: int, error_string, what: str) -> None:

@@ -28,7 +28,10 @@
 //   hg_prep      one thread per row: predicate (shared with select_project
 //                through predicate.cuh), row < n_valid[b], key = rint to
 //                int32 with saturation (cvt.rni: NaN -> 0), dropped rows
-//                -> drop_key with zero values; value columns gathered;
+//                -> drop_key with zero values; value columns gathered.
+//                The plan and the value columns are read from device
+//                memory, so any table width and any number of value
+//                columns run;
 //   hg_bucket    one thread per row: the bucket id;
 //   (the wrapper sorts bucket ids stably along each request: torch.sort)
 //   hg_claim     one thread per sorted position: the first row of each
@@ -36,7 +39,10 @@
 //                last writes end[b, s] (one writer each, no atomics);
 //   (the wrapper counts each bucket's pieces of at most 4096 sorted
 //   positions and takes their prefix sum: torch.cumsum over (B, nb))
-//   hg_piece     one block per piece: the block's threads walk the piece in
+//   hg_piece     one block per piece and per chunk of at most 16 value
+//                columns (the wrapper runs the chunks one after the other
+//                over the one bucket sort): the block's threads walk the
+//                piece in
 //                a fixed stride, then reduce across the block with warp
 //                shuffles and a fixed-order fold over warps, into the
 //                piece's partial (count, sum, min, max);
@@ -59,22 +65,14 @@
 
 namespace {
 
-using predicate::load_plan;
-using predicate::make_plan;
-using predicate::Plan;
 using predicate::row_passes;
-using predicate::SharedPlan;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxVals = 16;
+constexpr int kMaxVals = 16;      // value columns a piece block carries
 constexpr int kPieceRows = 4096;   // sorted positions a piece block reduces
 constexpr float kBig = 3.4028234663852886e38f;  // FLT_MAX
 constexpr uint32_t kFib = 0x9E3779B1u;
-
-struct ValCols {
-  int cols[kMaxVals];
-};
 
 __device__ __forceinline__ float daz(float x) {
   return (__float_as_uint(x) & 0x7F800000u) == 0u ? 0.0f : x;
@@ -103,24 +101,25 @@ __device__ __forceinline__ int bucket_of(int key, int log2_nb) {
   return log2_nb == 0 ? 0 : (int)(h >> (32 - log2_nb));
 }
 
+// plan: the compacted predicate (3 * n_pred words, predicate.cuh), then
+// the V value columns
 __global__ void __launch_bounds__(kThreads)
-hg_prep_kernel(const uint32_t* __restrict__ table, Plan plan, ValCols vc,
-               int C, int V, int kcol, const int* __restrict__ n_valid,
-               int drop_key, int* __restrict__ keys,
-               uint32_t* __restrict__ vals, long long N) {
-  __shared__ SharedPlan s_plan;
-  load_plan(plan, C, &s_plan);
-  __syncthreads();
+hg_prep_kernel(const uint32_t* __restrict__ table,
+               const int* __restrict__ plan, int n_pred, int C, int V,
+               int kcol, const int* __restrict__ n_valid, int drop_key,
+               int* __restrict__ keys, uint32_t* __restrict__ vals,
+               long long N) {
   const int b = blockIdx.y;
   const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (r >= N) return;
   const long long nv = min((long long)n_valid[b], N);
   const long long at = (long long)b * N + r;
   const uint32_t* row = table + at * C;
-  const bool m = r < nv && row_passes(row, C, s_plan);
+  const bool m = r < nv && row_passes(row, plan, n_pred);
   keys[at] = m ? __float2int_rn(__uint_as_float(row[kcol])) : drop_key;
+  const int* vcols = plan + 3 * n_pred;
   uint32_t* out = vals + at * V;
-  for (int j = 0; j < V; ++j) out[j] = m ? row[vc.cols[j]] : 0u;
+  for (int j = 0; j < V; ++j) out[j] = m ? row[__ldg(vcols + j)] : 0u;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -152,7 +151,8 @@ hg_claim_kernel(const int* __restrict__ sorted_bucket,
 }
 
 // one block per piece: at most kPieceRows consecutive sorted positions of
-// one bucket's segment. piece_incl[b, s] is the inclusive prefix sum of
+// one bucket's segment, over value columns [j0, j0 + Vc) of V (Vc <=
+// kMaxVals); the partials are (B, P, Vc). piece_incl[b, s] is the inclusive prefix sum of
 // the buckets' piece counts, so bucket s owns pieces
 // [piece_incl[s-1], piece_incl[s]) and its j-th piece starts at
 // start[s] + j * kPieceRows.
@@ -164,7 +164,7 @@ hg_piece_kernel(const long long* __restrict__ order,
                 const int* __restrict__ piece_incl,
                 int* __restrict__ pcount, float* __restrict__ psum,
                 float* __restrict__ pmin, float* __restrict__ pmax,
-                long long N, int V, int nb, int P) {
+                long long N, int V, int j0, int Vc, int nb, int P) {
   __shared__ int s_cnt[kWarps];
   __shared__ float s_sum[kMaxVals][kWarps];
   __shared__ float s_min[kMaxVals][kWarps];
@@ -185,7 +185,7 @@ hg_piece_kernel(const long long* __restrict__ order,
   const int owner = claimed[slot];
   const long long* ob = order + (long long)b * N;
   const int* kb = keys + (long long)b * N;
-  const float* vb = vals + (long long)b * N * V;
+  const float* vb = vals + (long long)b * N * V + j0;
 
   int cnt = 0;
   float a_sum[kMaxVals], a_min[kMaxVals], a_max[kMaxVals];
@@ -202,7 +202,7 @@ hg_piece_kernel(const long long* __restrict__ order,
     const float* v = vb + row * V;
 #pragma unroll
     for (int j = 0; j < kMaxVals; ++j) {
-      if (j < V) {
+      if (j < Vc) {
         const float x = v[j];
         a_sum[j] = add_daz(a_sum[j], own ? x : 0.0f);
         a_min[j] = nan_min(a_min[j], own ? x : kBig);
@@ -219,7 +219,7 @@ hg_piece_kernel(const long long* __restrict__ order,
     cnt += __shfl_down_sync(0xFFFFFFFFu, cnt, off);
 #pragma unroll
     for (int j = 0; j < kMaxVals; ++j) {
-      if (j < V) {
+      if (j < Vc) {
         a_sum[j] = add_daz(a_sum[j],
                            __shfl_down_sync(0xFFFFFFFFu, a_sum[j], off));
         a_min[j] = nan_min(a_min[j],
@@ -233,7 +233,7 @@ hg_piece_kernel(const long long* __restrict__ order,
     s_cnt[warp] = cnt;
 #pragma unroll
     for (int j = 0; j < kMaxVals; ++j) {
-      if (j < V) {
+      if (j < Vc) {
         s_sum[j][warp] = a_sum[j];
         s_min[j][warp] = a_min[j];
         s_max[j][warp] = a_max[j];
@@ -246,21 +246,22 @@ hg_piece_kernel(const long long* __restrict__ order,
   int total = 0;
   for (int w = 0; w < kWarps; ++w) total += s_cnt[w];
   pcount[at] = total;
-  for (int j = 0; j < V; ++j) {
+  for (int j = 0; j < Vc; ++j) {
     float sm = s_sum[j][0], mn = s_min[j][0], mx = s_max[j][0];
     for (int w = 1; w < kWarps; ++w) {
       sm = add_daz(sm, s_sum[j][w]);
       mn = nan_min(mn, s_min[j][w]);
       mx = nan_max(mx, s_max[j][w]);
     }
-    psum[at * V + j] = sm;
-    pmin[at * V + j] = mn;
-    pmax[at * V + j] = mx;
+    psum[at * Vc + j] = sm;
+    pmin[at * Vc + j] = mn;
+    pmax[at * Vc + j] = mx;
   }
 }
 
 // one thread per (bucket, request): folds the bucket's piece partials in
-// piece order and writes its row of the outputs
+// piece order and writes its row of the outputs, value columns
+// [j0, j0 + Vc) of V
 __global__ void __launch_bounds__(kThreads)
 hg_fold_kernel(const float* __restrict__ vals,
                const int* __restrict__ piece_incl,
@@ -268,7 +269,7 @@ hg_fold_kernel(const float* __restrict__ vals,
                const float* __restrict__ pmin, const float* __restrict__ pmax,
                int* __restrict__ count, float* __restrict__ sum,
                float* __restrict__ mn, float* __restrict__ mx, long long N,
-               int V, int nb, int P) {
+               int V, int j0, int Vc, int nb, int P) {
   const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= nb) return;
   const int b = blockIdx.y;
@@ -276,12 +277,12 @@ hg_fold_kernel(const float* __restrict__ vals,
   const int* incl = piece_incl + (long long)b * nb;
   const int p0 = s == 0 ? 0 : incl[s - 1];
   const int p1 = incl[s];
-  float* osum = sum + slot * V;
-  float* omin = mn + slot * V;
-  float* omax = mx + slot * V;
+  float* osum = sum + slot * V + j0;
+  float* omin = mn + slot * V + j0;
+  float* omax = mx + slot * V + j0;
   if (p1 <= p0) {                       // empty bucket
     count[slot] = 0;
-    for (int j = 0; j < V; ++j) {
+    for (int j = 0; j < Vc; ++j) {
       osum[j] = 0.0f;
       omin[j] = kBig;
       omax[j] = -kBig;
@@ -290,19 +291,19 @@ hg_fold_kernel(const float* __restrict__ vals,
   }
   if (N == 1) {                         // one row: its raw words
     count[slot] = 1;
-    const float* v = vals + (long long)b * V;
-    for (int j = 0; j < V; ++j) osum[j] = omin[j] = omax[j] = v[j];
+    const float* v = vals + (long long)b * V + j0;
+    for (int j = 0; j < Vc; ++j) osum[j] = omin[j] = omax[j] = v[j];
     return;
   }
   const long long base = (long long)b * P;
   int total = 0;
   for (int p = p0; p < p1; ++p) total += pcount[base + p];
   count[slot] = total;
-  for (int j = 0; j < V; ++j) {
-    const long long at = (base + p0) * V + j;
+  for (int j = 0; j < Vc; ++j) {
+    const long long at = (base + p0) * Vc + j;
     float sm = psum[at], lo = pmin[at], hi = pmax[at];
     for (int p = p0 + 1; p < p1; ++p) {
-      const long long q = (base + p) * V + j;
+      const long long q = (base + p) * Vc + j;
       sm = add_daz(sm, psum[q]);
       lo = nan_min(lo, pmin[q]);
       hi = nan_max(hi, pmax[q]);
@@ -341,29 +342,22 @@ dim3 row_grid(long long N, int B) {
 extern "C" {
 
 int hg_max_vals() { return kMaxVals; }
-int hg_max_cols() { return predicate::kMaxCols; }
 const char* hg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// table (B, N, C) f32, n_valid (B,), keys (B, N) i32, vals (B, N, V) f32:
-// device pointers. ops/sel_vals (C entries) and vcols (V entries): host
-// arrays, passed to the kernel by value. Returns cudaGetLastError().
-int hg_prep(const void* table, const int* ops, const float* sel_vals, int C,
-            int kcol, const int* vcols, int V, const void* n_valid,
-            int drop_key, void* keys, void* vals, long long N, int B,
-            void* stream) {
-  if (C < 1 || C > predicate::kMaxCols || V < 1 || V > kMaxVals || B < 1
-      || N < 1 || kcol < 0 || kcol >= C)
+// table (B, N, C) f32, plan (3 * n_pred + V words: the compacted
+// predicate, then the value columns), n_valid (B,), keys (B, N) i32,
+// vals (B, N, V) f32: device pointers. Returns cudaGetLastError().
+int hg_prep(const void* table, const void* plan, int n_pred, int C,
+            int kcol, int V, const void* n_valid, int drop_key, void* keys,
+            void* vals, long long N, int B, void* stream) {
+  if (C < 1 || n_pred < 0 || n_pred > C || V < 1 || B < 1 || N < 1
+      || kcol < 0 || kcol >= C)
     return cudaErrorInvalidValue;
-  ValCols vc = {};
-  for (int j = 0; j < V; ++j) {
-    if (vcols[j] < 0 || vcols[j] >= C) return cudaErrorInvalidValue;
-    vc.cols[j] = vcols[j];
-  }
   hg_prep_kernel<<<row_grid(N, B), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)table, make_plan(ops, sel_vals, nullptr, C), vc, C, V,
-      kcol, (const int*)n_valid, drop_key, (int*)keys, (uint32_t*)vals, N);
+      (const uint32_t*)table, (const int*)plan, n_pred, C, V, kcol,
+      (const int*)n_valid, drop_key, (int*)keys, (uint32_t*)vals, N);
   return (int)cudaGetLastError();
 }
 
@@ -392,14 +386,17 @@ int hg_piece_rows() { return kPieceRows; }
 
 // piece_incl (B, nb) i32: inclusive prefix sum over buckets of
 // ceil((end - start) / kPieceRows); partials pcount (B, P) i32 and
-// psum/pmin/pmax (B, P, V) f32 with P >= ceil(N / kPieceRows) + nb.
+// psum/pmin/pmax (B, P, Vc) f32 with P >= ceil(N / kPieceRows) + nb.
+// Aggregates value columns [j0, j0 + Vc) of vals (B, N, V) into the same
+// columns of sum/mn/mx (B, nb, V); count (B, nb) is written by every chunk.
 int hg_aggregate(const void* order, const void* keys, const void* vals,
                  const void* claimed, const void* start, const void* end,
                  const void* piece_incl, void* pcount, void* psum,
                  void* pmin, void* pmax, void* count, void* sum, void* mn,
-                 void* mx, long long N, int V, int B, int nb, int P,
-                 void* stream) {
-  if (B < 1 || N < 1 || nb < 1 || V < 1 || V > kMaxVals
+                 void* mx, long long N, int V, int j0, int Vc, int B, int nb,
+                 int P, void* stream) {
+  if (B < 1 || N < 1 || nb < 1 || V < 1 || Vc < 1 || Vc > kMaxVals
+      || j0 < 0 || j0 + Vc > V
       || (long long)P < (N + kPieceRows - 1) / kPieceRows + nb)
     return cudaErrorInvalidValue;
   hg_piece_kernel<<<dim3((unsigned)P, (unsigned)B), kThreads, 0,
@@ -407,14 +404,14 @@ int hg_aggregate(const void* order, const void* keys, const void* vals,
       (const long long*)order, (const int*)keys, (const float*)vals,
       (const int*)claimed, (const int*)start, (const int*)end,
       (const int*)piece_incl, (int*)pcount, (float*)psum, (float*)pmin,
-      (float*)pmax, N, V, nb, P);
+      (float*)pmax, N, V, j0, Vc, nb, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hg_fold_kernel<<<dim3((unsigned)((nb + kThreads - 1) / kThreads),
                         (unsigned)B), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)vals, (const int*)piece_incl, (const int*)pcount,
       (const float*)psum, (const float*)pmin, (const float*)pmax,
-      (int*)count, (float*)sum, (float*)mn, (float*)mx, N, V, nb, P);
+      (int*)count, (float*)sum, (float*)mn, (float*)mx, N, V, j0, Vc, nb, P);
   return (int)cudaGetLastError();
 }
 

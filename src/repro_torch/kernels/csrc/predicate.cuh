@@ -5,6 +5,16 @@
 // (NaN fails every op but !=) with subnormal operands read as zero on
 // both sides, as the reference compares on the TPU (no f32 subnormals)
 // and under XLA on the CPU (flush-to-zero compares).
+//
+// The plan lives in device memory, so a table may have any number of
+// columns: the wrapper compacts the predicate to the columns that carry a
+// compare (OP_SKIP and unknown codes pass, so they drop out) and uploads
+//   plan[0, n)    column index of each compare
+//   plan[n, 2n)   its op code
+//   plan[2n, 3n)  its operand, as f32 bits
+// followed by whatever the kernel reads next (select_project's keep mask,
+// hash_group's value columns). Every thread reads the same plan word at
+// the same time, so the loads are broadcasts from L1.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,68 +22,31 @@
 
 namespace predicate {
 
-constexpr int kMaxCols = 32;
-
 enum { OP_SKIP, OP_LT, OP_LE, OP_GT, OP_GE, OP_EQ, OP_NE };
-
-// the static plan, passed to a kernel by value
-struct Plan {
-  int ops[kMaxCols];
-  float vals[kMaxCols];
-  int keep[kMaxCols];
-};
-
-// the plan as a block holds it in shared memory
-struct SharedPlan {
-  int ops[kMaxCols];
-  float vals[kMaxCols];
-  uint32_t keep[kMaxCols];
-};
 
 // subnormals (and -0.0) compare as 0.0; see the contract above
 __device__ __forceinline__ float flush_subnormal(float x) {
   return (__float_as_uint(x) & 0x7F800000u) == 0u ? 0.0f : x;
 }
 
-// threads 0..C-1 copy the plan; the caller syncs the block after
-__device__ __forceinline__ void load_plan(const Plan& plan, int C,
-                                          SharedPlan* s) {
-  if (threadIdx.x < C) {
-    s->ops[threadIdx.x] = plan.ops[threadIdx.x];
-    s->vals[threadIdx.x] = flush_subnormal(plan.vals[threadIdx.x]);
-    s->keep[threadIdx.x] = plan.keep[threadIdx.x] ? 0xFFFFFFFFu : 0u;
-  }
-}
-
-__device__ __forceinline__ bool row_passes(const uint32_t* row, int C,
-                                           const SharedPlan& s) {
+__device__ __forceinline__ bool row_passes(const uint32_t* row,
+                                           const int* __restrict__ plan,
+                                           int n_pred) {
   bool ok = true;
-  for (int c = 0; c < C; ++c) {
-    const float x = flush_subnormal(__uint_as_float(row[c]));
-    const float v = s.vals[c];
-    switch (s.ops[c]) {
+  for (int i = 0; i < n_pred; ++i) {
+    const float x = flush_subnormal(__uint_as_float(row[__ldg(plan + i)]));
+    const float v = flush_subnormal(__int_as_float(__ldg(plan + 2 * n_pred + i)));
+    switch (__ldg(plan + n_pred + i)) {
       case OP_LT: ok = ok && (x < v); break;
       case OP_LE: ok = ok && (x <= v); break;
       case OP_GT: ok = ok && (x > v); break;
       case OP_GE: ok = ok && (x >= v); break;
       case OP_EQ: ok = ok && (x == v); break;
       case OP_NE: ok = ok && (x != v); break;
-      default: break;  // OP_SKIP and unknown codes pass, as in the reference
+      default: break;  // not produced by the wrapper's compaction
     }
   }
   return ok;
-}
-
-// keep may be null (no projection: every column kept)
-inline Plan make_plan(const int* ops, const float* vals, const int* keep,
-                      int C) {
-  Plan p = {};
-  for (int c = 0; c < C; ++c) {
-    p.ops[c] = ops[c];
-    p.vals[c] = vals[c];
-    p.keep[c] = keep ? keep[c] : 1;
-  }
-  return p;
 }
 
 }  // namespace predicate

@@ -15,7 +15,10 @@ Each bucket's segment of the sorted stream splits into pieces of at most
 4096 rows, one block each, folded per bucket in piece order: no float
 atomics, so two launches are bitwise equal, and a hot bucket (skewed
 keys, the drop-key bucket of a selective predicate) spreads over many
-blocks.
+blocks. Any table width and any number of value columns run: the
+prologue reads its plan from device memory, and the aggregation takes
+the value columns in chunks of 16 (the piece block's accumulators) over
+the one bucket sort.
 
 Two wrappers, each with a plain torch version and a launch counter:
 
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import select_project as _sp
 
 
 def _check(t: torch.Tensor, what: str) -> None:
@@ -76,11 +80,9 @@ def group_prep(table: torch.Tensor, kcol: int, vcols, sel_ops, sel_vals,
             or tuple(n_valid.shape) != (b,)):
         raise ValueError("n_valid must be a (B,) int32 tensor on the "
                          "table's device")
-    lib = _build.lib("hash_group.cu")
     ops, vals, cols = _plan(table, kcol, vcols, sel_ops, sel_vals)
-    if c > lib.hg_max_cols() or cols.size > lib.hg_max_vals():
-        raise ValueError(f"group_prep takes at most {lib.hg_max_cols()} "
-                         f"columns and {lib.hg_max_vals()} value columns")
+    pred = _sp.predicate_words(ops, vals)
+    lib = _build.lib("hash_group.cu")
     if n >= 2**31:
         raise ValueError("group_prep takes fewer than 2^31 rows a request")
     v = int(cols.size)
@@ -90,12 +92,14 @@ def group_prep(table: torch.Tensor, kcol: int, vcols, sel_ops, sel_vals,
         return keys, out
     table = table.contiguous()
     n_valid = n_valid.contiguous()
+    # the plan: the compacted predicate, then the value columns
+    plan = _build.upload(np.concatenate([pred, cols]), torch.int32,
+                         table.device)
     with torch.cuda.device(table.device):
         _build.check(lib.hg_prep(
-            table.data_ptr(), ops.ctypes.data, vals.ctypes.data, c, kcol,
-            cols.ctypes.data, v, n_valid.data_ptr(), int(drop_key),
-            keys.data_ptr(), out.data_ptr(), n, b,
-            torch.cuda.current_stream().cuda_stream),
+            table.data_ptr(), plan.data_ptr(), len(pred) // 3, c, kcol, v,
+            n_valid.data_ptr(), int(drop_key), keys.data_ptr(),
+            out.data_ptr(), n, b, torch.cuda.current_stream().cuda_stream),
             lib.hg_error_string, "group_prep")
     group_prep.launches += 1
     return keys, out
@@ -147,9 +151,8 @@ def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
     v = values.shape[2]
     dev = keys.device
     lib = _build.lib("hash_group.cu")
-    if not 1 <= v <= lib.hg_max_vals():
-        raise ValueError(f"group_aggregate takes 1..{lib.hg_max_vals()} "
-                         f"value columns, got {v}")
+    if v < 1:
+        raise ValueError("group_aggregate takes at least one value column")
     if n >= 2**31:
         raise ValueError("group_aggregate takes fewer than 2^31 rows a "
                          "request")
@@ -190,16 +193,21 @@ def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
         pieces = (end - start + (piece_rows - 1)) // piece_rows
         piece_incl = torch.cumsum(pieces, dim=1, dtype=torch.int32)
         n_pieces = -(-n // piece_rows) + n_buckets
+        # the value columns in chunks of at most hg_max_vals (the piece
+        # block's accumulators), each over the one sort and piece split
+        chunk = min(v, lib.hg_max_vals())
         pcount = torch.empty((b, n_pieces), dtype=torch.int32, device=dev)
-        partial = [torch.empty((b, n_pieces, v), dtype=torch.float32,
+        partial = [torch.empty((b, n_pieces, chunk), dtype=torch.float32,
                                device=dev) for _ in range(3)]
-        _build.check(lib.hg_aggregate(
-            order.data_ptr(), keys.data_ptr(), values.data_ptr(),
-            claimed.data_ptr(), start.data_ptr(), end.data_ptr(),
-            piece_incl.data_ptr(), pcount.data_ptr(),
-            *(t.data_ptr() for t in partial), count.data_ptr(),
-            *(t.data_ptr() for t in out), n, v, b, n_buckets, n_pieces,
-            stream), lib.hg_error_string, "group_aggregate aggregate pass")
+        for j0 in range(0, v, chunk):
+            _build.check(lib.hg_aggregate(
+                order.data_ptr(), keys.data_ptr(), values.data_ptr(),
+                claimed.data_ptr(), start.data_ptr(), end.data_ptr(),
+                piece_incl.data_ptr(), pcount.data_ptr(),
+                *(t.data_ptr() for t in partial), count.data_ptr(),
+                *(t.data_ptr() for t in out), n, v, j0, min(chunk, v - j0),
+                b, n_buckets, n_pieces, stream), lib.hg_error_string,
+                "group_aggregate aggregate pass")
         _build.check(lib.hg_overflow(
             keys.data_ptr(), claimed.data_ptr(), overflow.data_ptr(), n, b,
             n_buckets, stream), lib.hg_error_string,

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import ctr_crypt as _ctr
 from repro_torch.kernels import hash_group as _hg
+from repro_torch.kernels import hash_join as _hj
 from repro_torch.kernels import ref
 from repro_torch.kernels import select_project as _sp
 
@@ -68,6 +69,48 @@ def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
     mirroring the paper's cuckoo-overflow contract."""
     fn = _pick(keys, _hg.group_aggregate, _hg.group_aggregate_plain)
     return fn(keys, values, n_buckets)
+
+
+# ---------------------------------------------------------------------------
+# small-table join
+# ---------------------------------------------------------------------------
+def hash_join(probe: torch.Tensor, kcol: int, build_keys: torch.Tensor,
+              build_vals: torch.Tensor, n_valid: torch.Tensor, *,
+              out: torch.Tensor | None = None):
+    """probe (B, N, w) f32 words (key = rint of column kcol, saturated to
+    int32) or int32 keys; build_keys (K,) int32 unique, build_vals (K, V)
+    f32; n_valid (B,) int32 on probe's device. The join probe of
+    `repro/core/pipeline.py`'s join branch (`ops.hash_join_xla`) for each
+    request, into the widened select/project input `out` (B, N, >= w +
+    V + 1; new when None): each probe row, its V matched build words
+    (bitwise; zeros on a miss and past n_valid[b]), its hit flag (1.0 /
+    0.0) and zeros. Returns out."""
+    fn = _pick(probe, _hj.hash_join, _hj.hash_join_plain)
+    return fn(probe, kcol, build_keys, build_vals, n_valid, out=out)
+
+
+def check_build_unique(build_keys) -> None:
+    """The join's eager host check: ValueError on a duplicate build key."""
+    _hj.check_unique(build_keys)
+
+
+def hash_join_full(probe_keys, build_keys, build_vals, *,
+                   device=None) -> tuple:
+    """The contract of `repro.kernels.ops.hash_join`: probe_keys (N,)
+    int32, build_keys (K,) int32 UNIQUE (a duplicate raises ValueError,
+    checked on the host first), build_vals (K, V) f32, host arrays or
+    tensors, run on `device` (None means the CUDA card, raising where
+    there is none; "cpu" the plain version). Returns (joined (N, V) f32,
+    hit (N,) bool) on that device; K = 0 launches nothing."""
+    dev = _entry_device(device, "hash_join_full")
+    check_build_unique(build_keys)
+    pk = torch.as_tensor(np.asarray(probe_keys, np.int32)).to(dev)
+    bk = torch.as_tensor(np.asarray(build_keys, np.int32)).to(dev)
+    bv = torch.as_tensor(np.asarray(build_vals, np.float32)).to(dev)
+    n_valid = torch.full((1,), pk.shape[0], dtype=torch.int32, device=dev)
+    out = hash_join(pk[None, :, None], 0, bk, bv, n_valid)[0]
+    v = bv.shape[1]
+    return out[:, 1: 1 + v], out[:, 1 + v] == 1.0
 
 
 def _entry_device(device, caller: str) -> torch.device:

@@ -6,7 +6,7 @@ alike. Only the functions the ported slices need are here: the
 rows kind's `eval_predicate`, `select_project`, `threefry2x32` and
 `ctr_crypt`, and the grouping's `bucket_of`, `sort_by_bucket`,
 `segment_spans`, `segmented_reduce`, `group_aggregate` and
-`group_aggregate_exact`.
+`group_aggregate_exact`, and the join's `hash_join`.
 
 Cipher words are uint32 in the reference. torch on the CPU has no add,
 shift or compare for `torch.uint32`, so the cipher carries its words in
@@ -307,3 +307,29 @@ def group_aggregate_exact(keys, values) -> dict:
         e[2] = np.minimum(e[2], row)
         e[3] = np.maximum(e[3], row)
     return out
+
+
+# ---------------------------------------------------------------------------
+# hash_join (small-table inner join; the paper's stated future work)
+# ---------------------------------------------------------------------------
+def hash_join(probe_keys: torch.Tensor, build_keys: torch.Tensor,
+              build_vals: torch.Tensor):
+    """Unique-key inner join: probe_keys (..., N) int32, build_keys (K,)
+    int32 unique, build_vals (K, V) f32. Returns (joined (..., N, V) —
+    the matched build row's words, copied bitwise, or zeros; hit (..., N)
+    bool). K = 0 matches nothing. The contract of `repro.kernels.ops.
+    hash_join_xla`: the build sorted once, each probe key looked up with
+    a binary search (`torch.searchsorted`)."""
+    k, v = build_vals.shape
+    dev = probe_keys.device
+    if k == 0:
+        return (torch.zeros((*probe_keys.shape, v), dtype=torch.float32,
+                            device=dev),
+                torch.zeros(probe_keys.shape, dtype=torch.bool, device=dev))
+    sk, order = torch.sort(build_keys.to(dev))
+    bits = build_vals.to(dev).view(torch.int32)[order]
+    probe_keys = probe_keys.contiguous()
+    idx = torch.searchsorted(sk, probe_keys).clamp_(max=k - 1)
+    hit = sk[idx] == probe_keys
+    joined = torch.where(hit[..., None], bits[idx], 0)
+    return joined.view(torch.float32), hit

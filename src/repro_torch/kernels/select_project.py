@@ -35,11 +35,22 @@ def _plan(sel_ops, sel_vals, proj_mask, n_cols: int):
     return ops, vals, keep
 
 
+def predicate_words(ops: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """The predicate as the kernels read it (`csrc/predicate.cuh`): the
+    columns that carry a compare (op codes OP_LT..OP_NE; OP_SKIP and
+    unknown codes pass, so they drop out), then their op codes, then
+    their operands as f32 bits. int32, 3 * n_pred words."""
+    cols = np.flatnonzero((ops >= ref.OP_LT) & (ops <= ref.OP_NE))
+    return np.concatenate([cols.astype(np.int32), ops[cols],
+                           vals[cols].view(np.int32)])
+
+
 def select_project(table: torch.Tensor, sel_ops, sel_vals, proj_mask,
                    n_valid: torch.Tensor):
-    """Launch the CUDA kernel. table (B, N, C) f32 contiguous on the card;
-    sel_ops (C,) int32, sel_vals (C,) f32 and proj_mask (C,) host arrays
-    (the static plan); n_valid (B,) int32 on the card. Returns (packed
+    """Launch the CUDA kernel. table (B, N, C) f32 on the card, any
+    C >= 1; sel_ops (C,) int32, sel_vals (C,) f32 and proj_mask (C,) host
+    arrays (the static plan, uploaded without a sync); n_valid (B,) int32
+    on the card. Returns (packed
     (B, N, C) f32, count (B,) int32), both on the card, unsynchronised."""
     if table.device.type != "cuda":
         raise ValueError("select_project launches a CUDA kernel: table must "
@@ -52,13 +63,13 @@ def select_project(table: torch.Tensor, sel_ops, sel_vals, proj_mask,
             or tuple(n_valid.shape) != (b,)):
         raise ValueError("n_valid must be a (B,) int32 tensor on the "
                          "table's device")
-    lib = _build.lib("select_project.cu")
-    if not 1 <= c <= lib.sp_max_cols():
-        raise ValueError(f"select_project takes 1..{lib.sp_max_cols()} "
-                         f"columns, got {c}")
+    if c < 1:
+        raise ValueError("select_project takes at least one column")
     if n >= 2**31:
         raise ValueError("select_project takes fewer than 2^31 rows a request")
     ops, vals, keep = _plan(sel_ops, sel_vals, proj_mask, c)
+    pred = predicate_words(ops, vals)
+    lib = _build.lib("select_project.cu")
     table = table.contiguous()
     n_valid = n_valid.contiguous()
     packed = torch.empty_like(table)
@@ -68,20 +79,24 @@ def select_project(table: torch.Tensor, sel_ops, sel_vals, proj_mask,
     n_blocks = -(-n // lib.sp_rows_per_block())
     counts = torch.empty((b, n_blocks), dtype=torch.int32,
                          device=table.device)
+    # the plan: the compacted predicate, then the keep mask (0 / all ones)
+    plan = _build.upload(np.concatenate([pred, -keep]), torch.int32,
+                         table.device)
+    n_pred = len(pred) // 3
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.sp_count(
-            table.data_ptr(), ops.ctypes.data, vals.ctypes.data,
-            keep.ctypes.data, n_valid.data_ptr(), counts.data_ptr(), n, c, b,
-            stream), lib.sp_error_string, "select_project count pass")
+            table.data_ptr(), plan.data_ptr(), n_pred, n_valid.data_ptr(),
+            counts.data_ptr(), n, c, b, stream),
+            lib.sp_error_string, "select_project count pass")
         # the exclusive scan over the small (B, n_blocks) counts array
         inclusive = torch.cumsum(counts, dim=1, dtype=torch.int32)
         offsets = (inclusive - counts).contiguous()
         totals = inclusive[:, -1].contiguous()
         _build.check(lib.sp_pack(
-            table.data_ptr(), ops.ctypes.data, vals.ctypes.data,
-            keep.ctypes.data, n_valid.data_ptr(), offsets.data_ptr(),
-            totals.data_ptr(), packed.data_ptr(), n, c, b, stream),
+            table.data_ptr(), plan.data_ptr(), n_pred, n_valid.data_ptr(),
+            offsets.data_ptr(), totals.data_ptr(), packed.data_ptr(), n, c,
+            b, stream),
             lib.sp_error_string, "select_project pack pass")
     select_project.launches += 1
     return packed, totals

@@ -8,9 +8,12 @@ Run them on the card with
 
 `chip_smoke.py` covers the main path's shapes (2^25-row stacks); these
 cover the ragged ones: row counts that are not a multiple of the kernel's
-1024-row block, 1..32 columns, odd stream lengths, single requests, one
-row, one bucket and many, the grouping's special values (subnormals,
-+-0.0, +-inf, NaN, saturated keys, drop-key rows) and its determinism.
+1024-row block, 1..128 columns, odd stream lengths, single requests, one
+row, one bucket and many, more than 16 value columns, the grouping's
+special values (subnormals, +-0.0, +-inf, NaN, saturated keys, drop-key
+rows) and its determinism, the join probe over empty, small and
+larger-than-shared-memory builds with special keys and values, and a
+warm join round flushed without a host sync.
 """
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro_torch.core import operators as op
 from repro_torch.core.pipeline import _DROP_KEY
 from repro_torch.kernels import ctr_crypt as tctr
 from repro_torch.kernels import hash_group as thg
+from repro_torch.kernels import hash_join as thj
 from repro_torch.kernels import select_project as tsp
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +58,28 @@ def test_select_project_kernel_matches_plain(card, n, c):
     vals = rng.normal(size=c).astype(np.float32)
     proj = (rng.random(c) < 0.6).astype(np.float32)
     n_valid = torch.tensor([n, n // 2, max(0, n - 7)], dtype=torch.int32,
+                           device=card)
+    before = tsp.select_project.launches
+    got, cnt = tsp.select_project(table, ops, vals, proj, n_valid)
+    exp, ecnt = tsp.select_project_plain(table, ops, vals, proj, n_valid)
+    torch.cuda.synchronize()
+    assert tsp.select_project.launches == before + 1
+    assert torch.equal(cnt, ecnt)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 1025, 5000])
+@pytest.mark.parametrize("c", [33, 64, 128])
+def test_select_project_kernel_matches_plain_on_wide_tables(card, n, c):
+    rng = np.random.default_rng(n * 100 + c)
+    table = torch.from_numpy(_table(c, (2, n, c))).to(card)
+    ops = np.zeros(c, np.int32)
+    vals = np.zeros(c, np.float32)
+    for col in rng.choice(c, size=4, replace=False):
+        ops[col] = rng.integers(1, 7)
+        vals[col] = rng.normal()
+    proj = (rng.random(c) < 0.5).astype(np.float32)
+    n_valid = torch.tensor([n, max(0, n - 300)], dtype=torch.int32,
                            device=card)
     before = tsp.select_project.launches
     got, cnt = tsp.select_project(table, ops, vals, proj, n_valid)
@@ -172,6 +198,110 @@ def test_group_prep_kernel_matches_plain(card, n):
     assert torch.equal(got[1].view(torch.int32), exp[1].view(torch.int32))
 
 
+def test_wide_group_prep_and_many_value_columns_match_plain(card):
+    """C = 64 table columns, V = 20 value columns: two chunks of the
+    aggregation over one bucket sort."""
+    rng = np.random.default_rng(64)
+    t = _table(64, (2, 3000, 64))
+    t[:, :, 5] = rng.integers(0, 300, size=(2, 3000))
+    table = torch.from_numpy(t).to(card)
+    ops = np.zeros(64, np.int32)
+    sel = np.zeros(64, np.float32)
+    ops[63], sel[63] = 1, 0.5
+    vcols = list(range(40, 60))
+    n_valid = torch.tensor([3000, 2222], dtype=torch.int32, device=card)
+    before = (thg.group_prep.launches, thg.group_aggregate.launches)
+    keys, vals = thg.group_prep(table, 5, vcols, ops, sel, n_valid, _DROP_KEY)
+    ek, ev = thg.group_prep_plain(table, 5, vcols, ops, sel, n_valid,
+                                  _DROP_KEY)
+    assert torch.equal(keys, ek)
+    assert torch.equal(vals.view(torch.int32), ev.view(torch.int32))
+    for integer in (True, False):
+        v = torch.round(vals * 4) if integer else vals
+        v = torch.where(torch.isfinite(vals), v, vals)
+        got = thg.group_aggregate(keys, v, 256)
+        exp = thg.group_aggregate_plain(keys, v, 256)
+        torch.cuda.synchronize()
+        _same_groups(got, exp, integer)
+    assert (thg.group_prep.launches, thg.group_aggregate.launches) == (
+        before[0] + 1, before[1] + 2)
+
+
+def _join_input(seed, b, n, k):
+    """A (b, n, 3) f32 probe stack (key column 1: integers, NaN, +-inf,
+    +-2^31, +-1e10, halves, a subnormal) and a build of k unique keys
+    (the saturated ones among them) with special value words."""
+    rng = np.random.default_rng(seed)
+    probe = rng.normal(size=(b, n, 3)).astype(np.float32)
+    keys = rng.integers(-2 * k - 5, 2 * k + 5, size=(b, n)).astype(np.float32)
+    words = np.array([np.nan, np.inf, -np.inf, 2.0**31, -2.0**31, 1e10,
+                      -1e10, 2.5, -0.5, 3.5, 1e-40], np.float32)
+    at = rng.random((b, n)) < 0.1
+    keys[at] = rng.choice(words, at.sum())
+    probe[..., 1] = keys
+    pool = np.unique(np.concatenate([
+        rng.permutation(np.arange(-2 * k - 5, 2 * k + 5))[:k],
+        [2**31 - 1, -2**31, 0, 2, 4]]).astype(np.int32))
+    bk = rng.permutation(pool)[:k]
+    bv = rng.normal(size=(k, 2)).astype(np.float32)
+    specials = np.array([0x7FC00000, 0x7FC0BEEF, 0x7F800000, 0xFF800000,
+                         0x80000000, 0x00000005, 0x807FFFFF],
+                        np.uint32).view(np.float32)
+    hit = rng.random(bv.shape) < 0.3
+    bv[hit] = rng.choice(specials, hit.sum())
+    return probe, bk, bv
+
+
+@pytest.mark.parametrize("k", [0, 1, 64, 512, 65536])
+@pytest.mark.parametrize("b", [1, 4])
+def test_hash_join_kernel_matches_plain(card, k, b):
+    n = 5000
+    probe, bk, bv = _join_input(k + b, b, n, k)
+    probe = torch.from_numpy(probe).to(card)
+    bk, bv = torch.from_numpy(bk).to(card), torch.from_numpy(bv).to(card)
+    n_valid = torch.tensor([n, n - 1, 1, 0][:b], dtype=torch.int32,
+                           device=card)
+    before = thj.hash_join.launches
+    got = thj.hash_join(probe, 1, bk, bv, n_valid)
+    exp = thj.hash_join_plain(probe, 1, bk, bv, n_valid)
+    # the widened rows, from a view with a stride between requests
+    big = torch.cat([probe, probe[:, :77]], 1)
+    wide = torch.zeros((b, n, 7), device=card)
+    thj.hash_join(big[:, :n], 1, bk, bv, n_valid, out=wide)
+    ewide = thj.hash_join_plain(probe, 1, bk, bv, n_valid,
+                                out=torch.zeros((b, n, 7), device=card))
+    # int32 keys taken as they are
+    ikeys = torch.where(torch.isfinite(probe), probe, 0.0).clamp(
+        -1e9, 1e9).to(torch.int32)
+    igot = thj.hash_join(ikeys, 1, bk, bv, n_valid)
+    iexp = thj.hash_join_plain(ikeys, 1, bk, bv, n_valid)
+    torch.cuda.synchronize()
+    assert thj.hash_join.launches == before + (3 if k else 0)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    assert torch.equal(wide.view(torch.int32), ewide.view(torch.int32))
+    assert torch.equal(igot.view(torch.int32), iexp.view(torch.int32))
+    if k:
+        assert int(got[..., 5].sum()) > 0
+
+
+@pytest.mark.parametrize("k", [512, 65536])
+def test_hash_join_kernel_widens_rows_wider_than_the_tile(card, k):
+    """40-word probe rows: the widened output rows (43 words) are written
+    straight, not through the shared-memory tile."""
+    n = 3000
+    probe, bk, bv = _join_input(k, 2, n, k)
+    probe = torch.from_numpy(np.concatenate(
+        [probe] + [probe[..., :1] * 2] * 37, 2)).to(card)
+    bk, bv = torch.from_numpy(bk).to(card), torch.from_numpy(bv).to(card)
+    n_valid = torch.tensor([n, 1234], dtype=torch.int32, device=card)
+    got = thj.hash_join(probe, 1, bk, bv, n_valid,
+                        out=torch.empty((2, n, 44), device=card))
+    exp = thj.hash_join_plain(probe, 1, bk, bv, n_valid,
+                              out=torch.empty((2, n, 44), device=card))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
 def test_flush_never_waits_for_the_card(card):
     """The lazy contract: from submit through flush nothing synchronises
     with the device (torch raises on a synchronising call while the sync
@@ -199,6 +329,57 @@ def test_flush_never_waits_for_the_card(card):
         torch.cuda.set_sync_debug_mode("default")
     assert all(r.wait().shipped_bytes > 0 for r in reqs)
     assert node.dispatches == len(pipes) + 1
+
+
+def test_warm_join_round_never_waits_and_matches_the_cpu(card):
+    """A join round after the build's first (cold) round flushes under
+    sync debug mode "error"; its results equal the CPU node's."""
+    results = []
+    for device in (card, torch.device("cpu")):
+        node = fv.FViewNode(8 * 2**20, page_bytes=64 * 2**10, device=device)
+        qps = [fv.open_connection(node) for _ in range(4)]
+        rng = np.random.default_rng(5)
+        pcols = (fv.Column("k", "i32"), fv.Column("a"), fv.Column("b"))
+        probes = []
+        for i, n in enumerate((3000, 2500, 2100, 2049)):
+            ft = fv.alloc_table_mem(qps[0], fv.FTable(f"p{i}", pcols, n))
+            fv.table_write(qps[0], ft, ft.encode({
+                "k": rng.integers(0, 1024, n).astype(np.int32),
+                "a": rng.random(n).astype(np.float32),
+                "b": rng.random(n).astype(np.float32)}))
+            probes.append(ft)
+        dim = fv.alloc_table_mem(qps[0], fv.FTable(
+            "dim", (fv.Column("k", "i32"), fv.Column("v")), 512))
+        fv.table_write(qps[0], dim, dim.encode({
+            "k": rng.permutation(1024)[:512].astype(np.int32),
+            "v": rng.random(512).astype(np.float32)}))
+        join = op.JoinSmall("k", "dim", "k", ("v",))
+        pipes = [(join,), (op.Select((op.Predicate("a", "<", 0.5),)), join),
+                 (join, op.Crypt((4, 5), 6, "post"))]
+        for p in pipes:                     # cold: the host check runs
+            for r in [fv.submit_request(qp, ft, p)
+                      for qp, ft in zip(qps, probes)]:
+                r.wait()
+        before = (thj.hash_join.launches, node.dispatches)
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            reqs = [fv.submit_request(qp, ft, p)
+                    for p in pipes for qp, ft in zip(qps, probes)]
+            node.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if device.type == "cuda":
+            assert thj.hash_join.launches == before[0] + len(pipes)
+        assert node.dispatches == before[1] + len(pipes)
+        res = [r.wait() for r in reqs]
+        results.append(([r.rows.cpu() for r in res],
+                        [(r.count, r.shipped_bytes, r.read_bytes)
+                         for r in res]))
+    (rows_g, meta_g), (rows_c, meta_c) = results
+    assert meta_g == meta_c
+    for g, c in zip(rows_g, rows_c):
+        assert torch.equal(g.view(torch.int32), c.view(torch.int32))
 
 
 def test_node_mix_on_the_card_matches_the_cpu(card):

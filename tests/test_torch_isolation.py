@@ -1,8 +1,8 @@
 """The port stands alone: `src/repro_torch/` and `chip_smoke.py` import
 neither jax nor anything of the JAX package `repro`.
 
-Two checks: a subprocess imports `repro_torch`, runs a selection and a
-GroupBy request (merged client-side) on the CPU and then finds no `jax`
+Two checks: a subprocess imports `repro_torch`, runs a selection, a
+join and a GroupBy request (merged client-side) on the CPU and then finds no `jax`
 and no `repro` module loaded; an AST scan of
 every port file (and of `chip_smoke.py`) finds no such import statement.
 """
@@ -31,6 +31,11 @@ fv.table_write(qp, ft, np.arange(128, dtype=np.float32).reshape(64, 2))
 res = fv.farview_request(qp, ft, (op.Select((op.Predicate("a", "<", 20.0),)),
                                   op.Crypt((1, 2), 3, "post")))
 assert res.count == 10, res.count
+dim = fv.alloc_table_mem(qp, fv.FTable("dim", (fv.Column("k"), fv.Column("v")),
+                                       n_rows=8))
+fv.table_write(qp, dim, np.arange(16, dtype=np.float32).reshape(8, 2) * 2)
+res = fv.farview_request(qp, ft, (op.JoinSmall("a", "dim", "k", ("v",)),))
+assert res.count == 8, res.count
 group = (op.GroupBy("a", ("b",), n_buckets=16),)
 merged = fv.merge_group_partials(ft, group,
                                  [fv.farview_request(qp, ft, group)])
