@@ -63,7 +63,26 @@ Phases (any failure exits non-zero; nothing is caught):
 7. the wide path: a 128-column table (Fig. 7's widest tuple) of 2^18
    rows, four connections each submitting Project and SmartAddress of 3
    columns, counted and checked the same way;
-8. a JSON line with every kernel's numbers, and the last line
+8. the dfa_match kernel against its plain version, exactly: widths 16,
+   32, 64 and 128 (Fig. 10, benchmarks/bench_regex.py) and the unaligned
+   17 and 40, lengths below 0, 0 and past the width, bytes 0 and >= 128,
+   ragged n_valid, a stack starting off a 16-byte boundary, patterns of 4
+   and 64 DFA states; then B=4 x 2^22 strings of 64 bytes made as
+   bench_regex.py makes them (~50% match "err"), timed beside the plain
+   version, with its bound;
+9. the regex path, in the same node: four string tables of 2^22 strings
+   at width 64 (256 MiB of bytes each, made from --seed with numpy as
+   bench_regex.py makes them, ~50% matches), four connections each
+   submitting RegexMatch and RegexMatch + post-Crypt in one round (2
+   dispatches; the post-Crypt ships 1 byte a row and launches no cipher),
+   then a round of mixed widths (48 and 64) and row counts that stacks
+   into one dispatch, both flushed under sync debug mode "error", counted
+   and checked against the plain path (masks, shipped and read bytes by
+   the JAX rules); Crypt(pre) over a string table refused naming slice
+   4b; per-verb p50 under sync debug mode "error" and a traced round
+   splitting device time into the upload of the byte sideband, dfa_match
+   and the rest;
+10. a JSON line with every kernel's numbers, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits 2 without a result where torch sees no CUDA device.
@@ -90,6 +109,9 @@ FP32_OPS_PER_S = 67e12
 # 32-bit integer instructions: 64 INT32 lanes per SM (NVIDIA's H100
 # whitepaper), same SMs and clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# shared memory: 32 banks of 4 bytes per SM a cycle (NVIDIA's H100
+# whitepaper); one DFA transition is one byte lookup, one bank slot
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 # The cipher's instructions per word, counted in the kernel's SASS
 # (`cuobjdump -sass` of the sm_90a build): per counter block 2 initial key
 # adds, 20 rounds of add + funnel-shift rotate + xor, 5 key injections of
@@ -109,6 +131,11 @@ JOIN_ROWS_LOG2 = 26                   # the probe table: 2^26 rows x 3 words
 JOIN_KEYS = 1024                      # probe keys uniform in [0, 1024)
 JOIN_BUILDS = (512, 64)               # benchmarks/bench_join.py's builds
 WIDE_COLS = (33, 64, 128)             # widths past the old 32-column cap
+REGEX_ROWS_LOG2 = 22                  # 2^22 strings x 64 bytes = 256 MiB
+REGEX_WIDTH = 64
+# 4, 4 and 64 DFA states (compile_regex's default cap is 64)
+REGEX_PATTERNS = ("err", "e(r|x)+[a-f]*r?", "(a|e)....[xz]")
+DFA_WIDTHS = (16, 32, 64, 128, 17, 40)   # Fig. 10's widths + two unaligned
 
 
 def parse_args(argv):
@@ -735,21 +762,36 @@ def rows_path(fv, op, sp, ctr, kernels, gen, node, qps, n_rows, report):
 
 def submit_round(fv, qps, t, p):
     """One request per connection: `t` is one table for all of them, or a
-    list of one table each."""
+    list of one table each; a string table comes as (table, strings,
+    lengths), its byte sideband."""
     ts = t if isinstance(t, list) else [t] * len(qps)
-    return [fv.submit_request(qp, x, p) for qp, x in zip(qps, ts)]
+    out = []
+    for qp, x in zip(qps, ts):
+        if isinstance(x, tuple):
+            ft, mat, lens = x
+            out.append(fv.submit_request(qp, ft, p, strings=mat,
+                                         lengths=lens))
+        else:
+            out.append(fv.submit_request(qp, x, p))
+    return out
 
 
-def verb_p50(fv, node, qps, verbs, report):
-    """Per-verb p50: one stacked round of all connections, 5 repeats."""
+def verb_p50(fv, node, qps, verbs, report, strict=False):
+    """Per-verb p50: one stacked round of all connections, 5 repeats;
+    `strict` flushes each under sync debug mode "error"."""
     p50 = {}
     for name, (t, p) in verbs.items():
         times = []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            reqs = submit_round(fv, qps, t, p)
-            node.flush()
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                reqs = submit_round(fv, qps, t, p)
+                node.flush()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             for r in reqs:
                 r.wait()
             torch.cuda.synchronize()
@@ -760,9 +802,11 @@ def verb_p50(fv, node, qps, verbs, report):
     return p50
 
 
-def profile_rounds(fv, node, qps, verbs, report):
-    """One traced round of each verb: device time by operation (top 8)
-    and the device's busy share of the round's wall clock."""
+def profile_rounds(fv, node, qps, verbs, report, focus=None):
+    """One traced round of each verb: device time by operation (top 8),
+    the host-to-device uploads' share and the device's busy share of the
+    round's wall clock; with `focus`, the device time of the operations
+    whose name holds it, and of the rest."""
     from torch.profiler import ProfilerActivity, profile
     for name, (t, p) in verbs.items():
         torch.cuda.synchronize()
@@ -785,10 +829,26 @@ def profile_rounds(fv, node, qps, verbs, report):
         rows = sorted(((d, k, c) for k, (d, c) in per.items()),
                       reverse=True)
         busy = sum(r[0] for r in rows)
+        h2d = sum(d for d, k, _ in rows if "HtoD" in k)
         report(f"profile {name}: wall {wall_us / 1e3:.3f} ms, device busy "
-               f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%); top: "
-               + "; ".join(f"{k[:48]} x{c} {d / 1e3:.3f} ms"
-                           for d, k, c in rows[:8]))
+               f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, idle "
+               f"{100 - 100 * busy / wall_us:.1f}%), of it uploads "
+               f"{h2d / 1e3:.3f} ms ({100 * h2d / wall_us:.1f}% of wall); "
+               "top: " + "; ".join(f"{k[:48]} x{c} {d / 1e3:.3f} ms"
+                                   for d, k, c in rows[:8]))
+        if focus is not None:
+            ups = [round(evt.time_range.elapsed_us() / 1e3, 3)
+                   for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA
+                   and "HtoD" in evt.name]
+            report(f"profile {name} uploads, ms each: {ups}")
+            mine = sum(d for d, k, _ in rows if focus in k)
+            report(f"profile {name} split: uploads {h2d / 1e3:.3f} ms, "
+                   f"{focus} {mine / 1e3:.3f} ms, rest "
+                   f"{(busy - h2d - mine) / 1e3:.3f} ms; busy "
+                   f"{100 * busy / wall_us:.1f}%, idle "
+                   f"{100 - 100 * busy / wall_us:.1f}% of "
+                   f"{wall_us / 1e3:.3f} ms")
 
 
 def plain_groups(hg, sp, op, words, pipe, n_valid):
@@ -1118,6 +1178,281 @@ def wide_path(fv, op, sp, kernels, gen, node, qps, report):
     return launches, verb_p50(fv, node, qps, verbs, report)
 
 
+def dfa_strings(gen, b, n, w):
+    """(B, n, w) bytes on the card for the kernel checks: letters, space,
+    0 and bytes >= 128, with "err", "exxfr" and "eaqrx" each planted in a
+    fifth of the rows (where they fit); lengths in [-3, w + 3] (below 0, 0
+    and past the width among them)."""
+    alphabet = torch.tensor(list(b"aeerrxzfq ") + [0, 128, 200, 255],
+                            dtype=torch.uint8, device="cuda")
+    strings = alphabet[torch.randint(0, alphabet.numel(), (b, n, w),
+                                     generator=gen, device="cuda")]
+    for tok in (b"err", b"exxfr", b"eaqrx"):
+        if len(tok) <= w:
+            rows = torch.rand((b, n), generator=gen, device="cuda") < 0.2
+            at = (len(tok) * 7) % (w - len(tok) + 1)
+            strings[..., at: at + len(tok)][rows] = torch.tensor(
+                list(tok), dtype=torch.uint8, device="cuda")
+    lengths = torch.randint(-3, w + 4, (b, n), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return strings, lengths
+
+
+def bench_strings(gen, b, n, w):
+    """benchmarks/bench_regex.py's strings (`_make_strings`) on the card:
+    w - 1 lowercase letters with "err" at a random position in [0, w - 7)
+    in the even rows, w - 4 letters in the odd rows, zero-padded to w.
+    The letters after an inserted "err" are as uniform as those it
+    displaces, so writing it over them gives the same distribution."""
+    strings = torch.randint(97, 123, (b, n, w), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+    strings[..., w - 1] = 0
+    strings[:, 1::2, w - 4:] = 0
+    pos = torch.randint(0, w - 7, (b, (n + 1) // 2, 1), generator=gen,
+                        device="cuda")
+    tok = torch.tensor(list(b"err"), dtype=torch.uint8, device="cuda")
+    strings[:, 0::2].scatter_(2, pos + torch.arange(3, device="cuda"),
+                              tok.expand(b, (n + 1) // 2, 3))
+    lengths = torch.full((b, n), w - 4, dtype=torch.int32, device="cuda")
+    lengths[:, 0::2] = w - 1
+    return strings, lengths
+
+
+def make_strings(rng, n, w):
+    """`bench_strings` on the host, from a numpy generator: (n, w) uint8
+    bytes and (n,) int32 lengths."""
+    mat = np.zeros((n, w), np.uint8)
+    mat[:, : w - 1] = rng.integers(97, 123, (n, w - 1), dtype=np.uint8)
+    mat[1::2, w - 4:] = 0
+    even = np.arange(0, n, 2)
+    pos = rng.integers(0, w - 7, even.size)
+    mat[even[:, None], pos[:, None] + np.arange(3)] = np.frombuffer(
+        b"err", np.uint8)
+    lens = np.full(n, w - 4, np.int32)
+    lens[0::2] = w - 1
+    return mat, lens
+
+
+def check_dfa_match(dfa, compile_regex, gen, b, report):
+    """dfa_match vs its plain version, exactly: every width of DFA_WIDTHS
+    at B x 2^16 strings of mixed bytes and lengths for each pattern (and
+    from an odd byte offset), then the main path's B x 2^22 strings of 64
+    bytes; times the kernel there for each pattern and at Fig. 10's widths,
+    and the plain version. Returns the JSON entry."""
+    dfas = {p: dfa.prepare_dfa(*compile_regex(p), "cuda")
+            for p in REGEX_PATTERNS}
+    states = {p: int(t.shape[0]) for p, (t, _) in dfas.items()}
+    n = 1 << 16
+    for w in DFA_WIDTHS:
+        strings, lengths = dfa_strings(gen, b, n, w)
+        n_valid = torch.tensor([n, n - 1000, 1, 0][:b], dtype=torch.int32,
+                               device="cuda")
+        hits = {}
+        for pat, (table, accept) in dfas.items():
+            got = dfa.dfa_match(strings, lengths, n_valid, table, accept)
+            exp = dfa.dfa_match_plain(strings, lengths, n_valid, table,
+                                      accept)
+            if not torch.equal(got, exp):
+                raise AssertionError(f"dfa_match width {w} {pat!r}: "
+                                     f"{int((got != exp).sum())} rows differ "
+                                     f"from the plain version")
+            hits[pat] = got.sum(dim=1).tolist()
+        buf = torch.empty(strings.numel() + 1, dtype=torch.uint8,
+                          device="cuda")
+        buf[1:] = strings.view(-1)
+        got = dfa.dfa_match(buf[1:].view(b, n, w), lengths, n_valid,
+                            *dfas["err"])
+        exp = dfa.dfa_match_plain(strings, lengths, n_valid, *dfas["err"])
+        if not torch.equal(got, exp):
+            raise AssertionError(f"dfa_match width {w} from an odd offset "
+                                 f"differs from the plain version")
+        report(f"dfa_match width {w}, {b}x{n} strings, n_valid "
+               f"{n_valid.tolist()}: matches {hits}, equal to the plain "
+               f"version (also from an odd byte offset)")
+        del strings, lengths, buf, got, exp
+
+    n, w = 1 << REGEX_ROWS_LOG2, REGEX_WIDTH
+    strings, lengths = bench_strings(gen, b, n, w)
+    full = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    table, accept = dfas["err"]
+    got = dfa.dfa_match(strings, lengths, full, table, accept)
+    exp = dfa.dfa_match_plain(strings, lengths, full, table, accept)
+    if not torch.equal(got, exp):
+        raise AssertionError("dfa_match at the main path's shape differs "
+                             "from the plain version")
+    rate = float(got.float().mean())
+    del got, exp
+    ms = cuda_ms(lambda: dfa.dfa_match(strings, lengths, full, table,
+                                       accept))
+    ms_patterns = {p: cuda_ms(lambda: dfa.dfa_match(strings, lengths, full,
+                                                    *dfas[p]))
+                   for p in REGEX_PATTERNS}
+    plain_ms = cuda_ms(lambda: dfa.dfa_match_plain(strings, lengths, full,
+                                                   table, accept),
+                       reps=3, warmup=1)
+    moved = (strings.numel() + lengths.numel() * 4 + b * n + b * 4
+             + table.numel() * 4 + accept.numel())
+    lookups = int(lengths.clamp(0, w).sum())
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = lookups / SMEM_LOOKUPS_PER_S
+    del strings, lengths
+    ms_by_width = {w: ms}
+    for wv in (16, 32, 128):
+        sv, lv = bench_strings(gen, b, n, wv)
+        ms_by_width[wv] = cuda_ms(lambda: dfa.dfa_match(sv, lv, full, table,
+                                                        accept))
+        del sv, lv
+    report(f"dfa_match {b}x{n} strings of {w} bytes, {rate:.4f} match "
+           f"'err': {ms:.3f} ms (patterns of {states} states: "
+           f"{ms_patterns}); plain {plain_ms:.3f} ms; bound "
+           f"{max(t_bytes, t_ops) * 1e3:.3f} ms (bytes {t_bytes * 1e3:.3f}, "
+           f"{lookups} lookups {t_ops * 1e3:.3f}); by width {ms_by_width}")
+    return {"name": "dfa_match", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dfa_match.cu",
+            "replaces": "src/repro/kernels/dfa_match.py:76",
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": [b, n, w],
+            "ms_patterns": ms_patterns, "states": states,
+            "ms_by_width": ms_by_width, "match_rate": rate}
+
+
+def regex_path(fv, op, dfa, compile_regex, kernels, seed, node, qps,
+               report):
+    """Drive RegexMatch over four string tables through the node (their
+    bytes ride each request); returns the counted run's launches and the
+    per-verb p50s."""
+    n, w = 1 << REGEX_ROWS_LOG2, REGEX_WIDTH
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    tables = []
+    for i in range(len(qps)):
+        mat, lens = make_strings(rng, n, w)
+        tables.append((fv.FTable(f"log{i}", (fv.Column("bytes", "str"),),
+                                 n_rows=n, str_width=w), mat, lens))
+    report(f"regex path: {len(qps)} string tables of {n} x {w} bytes made "
+           f"in {time.perf_counter() - t0:.1f} s")
+    rx = op.RegexMatch("err")
+    verbs = {"regex": (tables, (rx,)),
+             "regex_post_encrypt": (tables, (rx, op.Crypt(
+                 KEY_POST, NONCE_POST, "post")))}
+    # mixed widths (64 and 48) and row counts, one power-of-two row bucket
+    mixed = []
+    for i, ((_, mat, lens), rows) in enumerate(zip(
+            tables, (n, n - n // 4, 3 * n // 4 + 5, n // 2 + 1))):
+        wi = w if i % 2 == 0 else 48
+        mixed.append((fv.FTable(f"mix{i}", (fv.Column("bytes", "str"),),
+                                n_rows=rows, str_width=wi),
+                      mat[:rows, :wi], np.minimum(lens[:rows], wi)))
+
+    reset_launches(kernels)
+    d0 = node.dispatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = {name: submit_round(fv, qps, t, p)
+                   for name, (t, p) in verbs.items()}
+        node.flush()
+        d1 = node.dispatches
+        pending["regex_mixed"] = submit_round(fv, qps, mixed, (rx,))
+        node.flush()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    results = {name: [r.wait() for r in reqs]
+               for name, reqs in pending.items()}
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches(kernels)
+    report(f"regex path: {N_CONNECTIONS * 3} requests in "
+           f"{node.dispatches - d0} dispatches ({d1 - d0} + "
+           f"{node.dispatches - d1} mixed), {run_ms:.3f} ms, launches "
+           f"{launches}, no host sync before finalize")
+    if d1 - d0 != len(verbs) or node.dispatches - d1 != 1:
+        raise AssertionError("regex path: same-signature string requests "
+                             "did not stack into one dispatch each")
+    if launches["dfa_match"] != len(verbs) + 1 or launches["ctr_crypt"]:
+        raise AssertionError(f"regex path: expected one dfa_match launch a "
+                             f"dispatch and no cipher, got {launches}")
+
+    table, accept = dfa.prepare_dfa(*compile_regex("err"), "cuda")
+
+    def plain_mask(mat, lens):
+        strings = torch.from_numpy(np.ascontiguousarray(mat)).cuda()[None]
+        nv = torch.tensor([mat.shape[0]], dtype=torch.int32, device="cuda")
+        return dfa.dfa_match_plain(strings, torch.from_numpy(lens).cuda()[None],
+                                   nv, table, accept)[0]
+
+    expected = [plain_mask(mat, lens) for _, mat, lens in tables]
+    runs = {"regex": tables, "regex_post_encrypt": tables,
+            "regex_mixed": mixed}
+    for name, res_list in results.items():
+        for i, ((ft, mat, lens), res) in enumerate(zip(runs[name],
+                                                       res_list)):
+            exp = (expected[i] if name != "regex_mixed"
+                   else plain_mask(mat, lens))
+            rows, wi = mat.shape
+            if not torch.equal(res.mask, exp):
+                raise AssertionError(f"{name}: connection {i}'s mask differs "
+                                     f"from the plain path")
+            # the JAX rules: one byte a valid row shipped, rows x own
+            # width read; no count
+            if (res.shipped_bytes != rows or res.read_bytes != rows * wi
+                    or res.count is not None):
+                raise AssertionError(f"{name}: shipped {res.shipped_bytes} "
+                                     f"read {res.read_bytes} for {rows} x "
+                                     f"{wi}")
+        report(f"{name}: matches {[int(r.mask.sum()) for r in res_list]} of "
+               f"{[r.mask.numel() for r in res_list]}, {N_CONNECTIONS} masks "
+               f"equal to the plain path, shipped "
+               f"{[r.shipped_bytes for r in res_list]} read "
+               f"{[r.read_bytes for r in res_list]} bytes")
+    del results, pending, expected
+
+    ft, mat, lens = tables[0]
+    req = fv.submit_request(qps[0], ft, (op.Crypt(KEY_PRE, NONCE_PRE, "pre"),
+                                         rx), strings=mat, lengths=lens)
+    try:
+        node.flush()
+    except NotImplementedError:
+        pass
+    if not (isinstance(req.error, NotImplementedError)
+            and "slice 4b" in str(req.error)):
+        raise AssertionError(f"Crypt(pre) over a string table: {req.error!r}")
+    report(f"Crypt(pre) over a string table refused: {req.error}")
+
+    sideband_split(tables, report)
+    verbs["regex_mixed"] = (mixed, (rx,))
+    p50 = verb_p50(fv, node, qps, verbs, report, strict=True)
+    profile_rounds(fv, node, qps, verbs, report, focus="dfa_match")
+    return launches, p50
+
+
+def sideband_split(tables, report):
+    """Where a regex round's host time goes: the round's byte sideband
+    (the four tables' strings, 1 GiB) stacked into pinned host memory as
+    the node stacks it, then uploaded (CUDA events), each timed alone."""
+    b = len(tables)
+    n, w = tables[0][1].shape
+    pinned = torch.empty((b, n, w), dtype=torch.uint8, pin_memory=True)
+    view = pinned.numpy()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i, (_, mat, _) in enumerate(tables):
+            view[i] = mat
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev = torch.empty((b, n, w), dtype=torch.uint8, device="cuda")
+    up_ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), reps=5,
+                    warmup=1)
+    report(f"sideband of a regex round, {pinned.numel()} bytes: stacked into "
+           f"pinned memory in {statistics.median(times):.3f} ms (runs "
+           f"{[round(x, 3) for x in times]}); uploaded in {up_ms:.3f} ms "
+           f"({pinned.numel() / up_ms / 1e6:.1f} GB/s)")
+    del pinned, dev
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -1136,7 +1471,9 @@ def main(argv=None) -> int:
     import repro_torch as fv
     from repro_torch.core import operators as op
     from repro_torch.kernels import _build
+    from repro_torch.core.regex import compile_regex
     from repro_torch.kernels import ctr_crypt as ctr
+    from repro_torch.kernels import dfa_match as dfa
     from repro_torch.kernels import hash_group as hg
     from repro_torch.kernels import hash_join as hj
     from repro_torch.kernels import ref
@@ -1146,7 +1483,8 @@ def main(argv=None) -> int:
                "ctr_crypt": ctr.ctr_crypt,
                "hash_group": hg.group_aggregate,
                "group_prep": hg.group_prep,
-               "hash_join": hj.hash_join}
+               "hash_join": hj.hash_join,
+               "dfa_match": dfa.dfa_match}
 
     def report(line):
         print(line, flush=True)
@@ -1180,6 +1518,9 @@ def main(argv=None) -> int:
     entries.append(check_hash_join(hj, ref, gen, N_CONNECTIONS,
                                    1 << JOIN_ROWS_LOG2, report))
     torch.cuda.empty_cache()
+    entries.append(check_dfa_match(dfa, compile_regex, gen, N_CONNECTIONS,
+                                   report))
+    torch.cuda.empty_cache()
 
     node = fv.FViewNode(4 * 2**30, device="cuda")
     qps = [fv.open_connection(node) for _ in range(N_CONNECTIONS)]
@@ -1197,12 +1538,18 @@ def main(argv=None) -> int:
     wide_launches, wide_p50 = wide_path(fv, op, sp, kernels, gen, node, qps,
                                         report)
     p50.update(wide_p50)
+    torch.cuda.empty_cache()
+    regex_launches, regex_p50 = regex_path(fv, op, dfa, compile_regex,
+                                           kernels, args.seed, node, qps,
+                                           report)
+    p50.update(regex_p50)
     for qp in qps:
         fv.close_connection(qp)
     # launches: the counted runs of all paths together
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in (
-            rows_launches, group_launches, join_launches, wide_launches))
+            rows_launches, group_launches, join_launches, wide_launches,
+            regex_launches))
     report(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     report(f"p50 ms per verb: {json.dumps(p50)}")
     print(json.dumps({"kernels": entries}))

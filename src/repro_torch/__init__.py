@@ -11,7 +11,9 @@ The verb API re-exported here covers the ported slices: selection,
 projection, smart addressing and CTR crypt (rows kind), the small-table
 join `JoinSmall` (rows kind, its build table read from the node's pool at
 every dispatch), GroupBy and Distinct (groups kind, merged client-side by
-`merge_group_partials`), over word tables of any width.
+`merge_group_partials`), over word tables of any width; and RegexMatch
+(mask kind) over string tables (`string_table`), whose bytes ride each
+request as `strings=` / `lengths=`.
 """
 from repro_torch.core.client import (FViewNode, PendingRequest, QPair,
                                      alloc_table_mem, close_connection,
@@ -23,4 +25,4 @@ from repro_torch.core.client import (FViewNode, PendingRequest, QPair,
 from repro_torch.core.errors import (DeadlineExceededError, FarviewError,
                                      NodeDeadError)
 from repro_torch.core.pipeline import PipelineResult, compile_pipeline
-from repro_torch.core.table import Column, FTable
+from repro_torch.core.table import Column, FTable, string_table

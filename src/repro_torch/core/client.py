@@ -1,6 +1,6 @@
 """Farview programmatic interface + multi-client scheduler (port of
 `repro/core/client.py`: rows-kind verbs, the small-table join and
-groups-kind verbs over word tables).
+groups-kind verbs over word tables; RegexMatch over string tables).
 
 Mirrors the paper's API surface:
 
@@ -19,6 +19,9 @@ arbiter, §4.3), and picked requests with the same pipeline signature, table
 layout and power-of-two row bucket are coalesced into ONE stacked dispatch
 (`CompiledPipeline.run_pages_batched`): page lists are padded with the
 pool's pinned null page and each request's tail is masked by its n_valid.
+A string table's request carries its bytes (`strings=` / `lengths=`);
+string requests coalesce on (signature, row bucket, width bucket) into one
+stacked `CompiledPipeline.run_strings_batched` round.
 
 Dispatch is asynchronous: results are lazy `PipelineResult`s whose
 `finalize()` is the only synchronization point. Read bytes settle at
@@ -176,6 +179,8 @@ class PendingRequest:
     ft: FTable
     pipeline: tuple
     row_ids: np.ndarray | None = None   # original-table row indices
+    lengths: np.ndarray | None = None   # string table: (n,) int32 lengths
+    strings: np.ndarray | None = None   # string table: (n, w) uint8 bytes
     result: PipelineResult | None = None
     error: Exception | None = None      # dispatch-time failure (this request)
     deadline_at: float | None = None    # time.monotonic() budget expiry
@@ -249,15 +254,23 @@ class FViewNode:
 
     # -------------------------------------------------------------- scheduler
     def submit(self, qp: QPair, ft: FTable, pipeline: tuple, *,
+               lengths: np.ndarray | None = None,
+               strings: np.ndarray | None = None,
                row_ids: np.ndarray | None = None,
                deadline_s: float | None = None) -> PendingRequest:
         """Queue a Farview verb; dispatched at the next scheduling round.
-        `deadline_s` is the remaining budget: past it the request is shed
-        (typed `DeadlineExceededError`) instead of dispatched."""
+        A string table's request carries its bytes: `strings` (n, w) uint8
+        and `lengths` (n,) int32. `deadline_s` is the remaining budget:
+        past it the request is shed (typed `DeadlineExceededError`)
+        instead of dispatched."""
         if qp.qp_id not in self._qpairs:
             raise FarviewError(f"connection qp{qp.qp_id} is closed")
         pipeline = op_ir.validate_pipeline(tuple(pipeline))
-        req = PendingRequest(qp, ft, pipeline, row_ids)
+        if strings is not None or ft.str_width:
+            strings, lengths = _string_sideband(ft, strings, lengths,
+                                                row_ids)
+        req = PendingRequest(qp, ft, pipeline, row_ids=row_ids,
+                             lengths=lengths, strings=strings)
         if deadline_s is not None:
             if deadline_s <= 0:     # dead on arrival: shed, never queued
                 req.error = DeadlineExceededError(self.node_id, op="submit")
@@ -325,12 +338,22 @@ class FViewNode:
         """The coalescing key: requests with equal keys ride one stacked
         dispatch this round. Layout is column names and dtypes (what the
         plan cache keys on); sizes enter only as power-of-two buckets;
-        partitioned requests (row_ids) ride their own stacks."""
+        partitioned requests (row_ids) ride their own stacks. String
+        requests bucket on (rows, width); a pre-crypt pins the width
+        exactly because the CTR keystream is positional over the
+        row-major byte flattening (row padding appends whole rows and
+        never shifts it)."""
+        sig = op_ir.signature(req.pipeline)
+        ids = req.row_ids is not None
         layout = (tuple((c.name, c.dtype) for c in req.ft.columns),
                   bool(req.ft.str_width))
-        return ("word", op_ir.signature(req.pipeline), layout,
-                req.ft.row_words, op_ir.pow2_bucket(req.ft.n_rows),
-                req.row_ids is not None)
+        if req.strings is not None:
+            n, w = req.strings.shape
+            wkey = (int(w) if op_ir.has_crypt_pre(req.pipeline)
+                    else op_ir.pow2_bucket(w))
+            return ("str", sig, layout, op_ir.pow2_bucket(n), wkey, ids)
+        return ("word", sig, layout, req.ft.row_words,
+                op_ir.pow2_bucket(req.ft.n_rows), ids)
 
     def _resolve_build(self, pipeline: tuple):
         """The node reads the join build table into "on-chip memory"
@@ -360,7 +383,11 @@ class FViewNode:
             if region.loaded_signature != sig:
                 region.loaded_signature = sig   # "partial reconfiguration"
                 region.reconfigurations += 1
-        if len(reqs) == 1:
+        if len(reqs) == 1 and reqs[0].strings is not None:
+            req = reqs[0]
+            results = [pipe(req.strings, lengths=req.lengths,
+                            device=self.device)]
+        elif len(reqs) == 1:
             req = reqs[0]
             results = [pipe.run_pages(self.pool.buf, req.ft.pages,
                                       req.ft.n_rows,
@@ -368,6 +395,8 @@ class FViewNode:
                                       n_rows=req.ft.n_rows,
                                       row_words=req.ft.row_words,
                                       row_ids=req.row_ids)]
+        elif reqs[0].strings is not None:
+            results = self._dispatch_strings_batched(pipe, reqs)
         else:
             results = self._dispatch_pages_batched(pipe, reqs)
         self.dispatches += 1        # counted only once the launch succeeded
@@ -397,6 +426,37 @@ class FViewNode:
                                       n_rows=bucket, row_words=row_words,
                                       row_ids=row_ids)
 
+    def _dispatch_strings_batched(self, pipe, reqs) -> list[PipelineResult]:
+        """Stacked string round: each request's bytes zero-padded to the
+        round's quarter-octave (rows, width) bucket and stacked, on the
+        card straight into pinned host memory, so the stack crosses in one
+        non-blocking upload with no staging copy. Padded rows carry length
+        0 and are masked by n_valid. A row's length is cut to its own
+        request's width, so no request consumes the padding bytes of a
+        wider neighbour (the JAX node does: ROADMAP.md queue 3). Widths
+        stay exact when the key pinned them (pre-crypt keystream)."""
+        mats = [r.strings for r in reqs]
+        bucket_n = op_ir.shape_bucket(max(m.shape[0] for m in mats))
+        bucket_w = (mats[0].shape[1] if op_ir.has_crypt_pre(reqs[0].pipeline)
+                    else max(op_ir.shape_bucket(m.shape[1]) for m in mats))
+        pin = self.device.type == "cuda"
+        stacked = torch.empty((len(reqs), bucket_n, bucket_w),
+                              dtype=torch.uint8, pin_memory=pin)
+        lengths = torch.empty((len(reqs), bucket_n), dtype=torch.int32,
+                              pin_memory=pin)
+        s, ln = stacked.numpy(), lengths.numpy()
+        for b, (m, r) in enumerate(zip(mats, reqs)):
+            n, w = m.shape
+            s[b, :n, :w] = m
+            s[b, :n, w:] = 0
+            s[b, n:] = 0
+            np.minimum(r.lengths, w, out=ln[b, :n])
+            ln[b, n:] = 0
+        n_valid = [m.shape[0] for m in mats]
+        widths = [m.shape[1] for m in mats]
+        return pipe.run_strings_batched(stacked, lengths, n_valid,
+                                        widths=widths, device=self.device)
+
     def _account(self, req: PendingRequest, res: PipelineResult) -> None:
         qp = req.qp
         qp.requests += 1
@@ -414,6 +474,27 @@ class FViewNode:
 
         self._inflight.append(res)
         res.on_finalize(_credit)
+
+
+def _string_sideband(ft: FTable, strings, lengths, row_ids) -> tuple:
+    """A string table's request bytes, checked: (strings (n, w) uint8,
+    lengths (n,) int32) as numpy arrays."""
+    if not ft.str_width:
+        raise ValueError(f"strings= carries a string table's bytes; "
+                         f"{ft.name!r} is a word table")
+    if strings is None or lengths is None:
+        raise ValueError(f"a request over string table {ft.name!r} carries "
+                         "its bytes: strings= and lengths=")
+    if row_ids is not None:
+        raise NotImplementedError(
+            "partitioned string requests (row_ids) are not ported yet: they "
+            "come with ROADMAP.md queue 1, slice 4b")
+    strings = np.asarray(strings, np.uint8)
+    lengths = np.asarray(lengths, np.int32)
+    if strings.ndim != 2 or lengths.shape != strings.shape[:1]:
+        raise ValueError(f"strings (n, w) and lengths (n,), got "
+                         f"{strings.shape} and {lengths.shape}")
+    return strings, lengths
 
 
 def load_node_state(node: FViewNode, buf: np.ndarray,
@@ -486,19 +567,27 @@ def table_read_rows(qp: QPair, ft: FTable, row_idx) -> torch.Tensor:
 
 # ------------------------------------------------------------- Farview verb
 def submit_request(qp: QPair, ft: FTable, pipeline: tuple, *,
+                   lengths: np.ndarray | None = None,
+                   strings: np.ndarray | None = None,
                    row_ids: np.ndarray | None = None) -> PendingRequest:
     """Async Farview verb: queue on the node. `node.flush()` dispatches;
     requests from different QPairs sharing a signature coalesce into one
     stacked dispatch per scheduling round."""
-    return qp.node.submit(qp, ft, pipeline, row_ids=row_ids)
+    return qp.node.submit(qp, ft, pipeline, lengths=lengths, strings=strings,
+                          row_ids=row_ids)
 
 
 def farview_request(qp: QPair, ft: FTable, pipeline: tuple, *,
+                    lengths: np.ndarray | None = None,
+                    strings: np.ndarray | None = None,
                     row_ids: np.ndarray | None = None) -> PipelineResult:
     """The paper's extra one-sided verb: read + operator pipeline push-down.
     Returns a lazy `PipelineResult`; touch `.count` / `.shipped_bytes` or
-    call `.finalize()` to sync."""
-    req = submit_request(qp, ft, pipeline, row_ids=row_ids)
+    call `.finalize()` to sync. String tables (regex) pass their byte
+    matrix via `strings=` + `lengths=`: their bytes are a sideband of the
+    request, not pool pages."""
+    req = submit_request(qp, ft, pipeline, lengths=lengths, strings=strings,
+                         row_ids=row_ids)
     try:
         qp.node.flush()
     except Exception:

@@ -1,5 +1,6 @@
 """Pipeline compiler (port of `repro/core/pipeline.py`): the rows kind
-(with the small-table join) and the groups kind over word tables.
+(with the small-table join) and the groups kind over word tables, and
+the mask kind (RegexMatch) over string tables.
 
 `compile_pipeline(schema, pipeline)` returns a `CompiledPipeline` whose
 request path — pool-page gather, pre-decrypt, smart addressing, join
@@ -11,6 +12,13 @@ hand-written CUDA kernels of `repro_torch.kernels`; on the CPU their
 plain torch versions run (`kernels/ops.py` dispatches on the tensor's
 device).
 
+A string table's bytes do not live in the pool: each request carries them
+as a sideband, (n, w) uint8 strings and (n,) int32 lengths. Its pipeline
+holds a RegexMatch, whose DFA is compiled once when the plan is built and
+uploaded once per device; the `dfa_match` kernel returns a match mask,
+one byte a row shipped, and every later stage is skipped (a post-Crypt
+too), as in the reference.
+
 Entry points (each takes an optional `row_ids` for partition dispatch,
 and a JoinSmall pipeline its build as `build=(keys, vals)`):
 
@@ -20,6 +28,9 @@ and a JoinSmall pipeline its build as `build=(keys, vals)`):
       (B, P), n_valid (B,). The stack axis B is explicit all the way down:
       every kernel takes it in its grid, with a per-request n_valid; one
       join build serves the whole stack.
+  pipe(strings, lengths=..., device=...)       one string request
+  pipe.run_strings_batched(strings, lengths, n_valid, widths=...)
+      stacked string round: strings (B, n, w), lengths (B, n).
 
 Every entry point returns lazy `PipelineResult`s: device tensors plus
 device count/byte scalars. `PipelineResult.finalize()` is the ONLY sync
@@ -32,9 +43,10 @@ The JAX pipeline indexes that narrowed work with full-schema indices,
 which clamp to other columns; the port gives the result of the JAX
 `Project` form instead (ROADMAP.md queue 3).
 
-The JAX pipeline also runs regex over string tables. That comes in a
-later slice of the port (ROADMAP.md queue 1); this pipeline refuses it at
-construction rather than run it some other way.
+Two string-table cases are refused at construction: a pre-decrypt (the
+byte cipher comes with ROADMAP.md queue 1, slice 4b) and a pipeline
+without RegexMatch (the JAX pipeline runs it over the raw bytes as the
+rows kind; ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -47,18 +59,14 @@ import torch
 from repro_torch.core import operators as op_ir
 from repro_torch.core import pool as fpool
 from repro_torch.core.errors import FarviewError
+from repro_torch.core.regex import compile_regex
 from repro_torch.core.table import FTable, WORD_BYTES
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels._build import upload as _upload
+from repro_torch.kernels.dfa_match import prepare_dfa
 
 _DROP_KEY = kref.KEY_SENTINEL + 1     # masked-row group key (never in data)
-
-# operator -> the ROADMAP.md queue-1 slice that brings it to the port
-_LATER_SLICES = {
-    op_ir.RegexMatch: "slice 4 (regex over string tables with the dfa_match "
-                      "kernel)",
-}
 
 # join builds whose keys were found unique, by the name their caller
 # gives them (the node's: build table id and write generation)
@@ -97,18 +105,19 @@ class PipelineResult:
     and shipped-byte scalars to Python ints, copies the survivor ids and
     the group-overflow collision rows to the host, and fires accounting
     callbacks. Scalar properties (`count`, `groups`, `shipped_bytes`,
-    `sel_ids`) finalize on first access; `rows` hands back the raw device
-    tensor without forcing a sync.
+    `sel_ids`) finalize on first access; `rows` and `mask` hand back the
+    raw device tensors without forcing a sync.
     """
 
     def __init__(self, kind: str, *, groups: dict | None = None,
                  shipped_bytes: int = 0, read_bytes: int = 0,
                  _raw: dict | None = None, _meta: dict | None = None):
-        self.kind = kind                # "rows" | "groups"
+        self.kind = kind                # "rows" | "groups" | "mask"
         self.read_bytes = read_bytes    # static: bytes pulled from pool memory
         self._rows = None
         self._count = None
         self._groups = groups
+        self._mask = None
         self._shipped = shipped_bytes
         self._ids = None                # survivors' original row ids, or None
         self._raw = _raw                # unfinalized payload
@@ -120,6 +129,13 @@ class PipelineResult:
         if self._raw is not None and "rows" in self._raw:
             return self._raw["rows"]
         return self._rows
+
+    @property
+    def mask(self):
+        """Mask kind: the (n,) bool match mask, a device tensor."""
+        if self._raw is not None and "mask" in self._raw:
+            return self._raw["mask"]
+        return self._mask
 
     @property
     def groups(self):
@@ -160,6 +176,9 @@ class PipelineResult:
             raw, self._raw = self._raw, None
             if self.kind == "groups":
                 self._finalize_groups(raw)
+            elif self.kind == "mask":
+                self._mask = raw["mask"]
+                self._shipped = int(raw["shipped"])
             else:
                 self._rows = raw["rows"]
                 self._count = int(raw["count"])
@@ -197,16 +216,6 @@ class CompiledPipeline:
                 and any(isinstance(op, (op_ir.GroupBy, op_ir.Distinct))
                         for op in pipeline)):
             raise ValueError("JoinSmall composes with select/project only")
-        for op in pipeline:
-            later = _LATER_SLICES.get(type(op))
-            if later is not None:
-                raise NotImplementedError(
-                    f"{type(op).__name__} is not ported yet: it comes with "
-                    f"ROADMAP.md queue 1, {later}")
-        if schema.str_width:
-            raise NotImplementedError(
-                "string tables are not ported yet: they come with ROADMAP.md "
-                f"queue 1, {_LATER_SLICES[op_ir.RegexMatch]}")
         self.signature = op_ir.signature(pipeline)
         self._cols = tuple(c.name for c in schema.columns)
         self._n_cols = len(self._cols)
@@ -222,6 +231,9 @@ class CompiledPipeline:
         self.group: op_ir.GroupBy | None = None
         self.distinct: op_ir.Distinct | None = None
         self.join: op_ir.JoinSmall | None = None
+        self.regex: tuple | None = None    # host DFA: (table, accept)
+        self._dfa: dict = {}               # guarded-by: self._dfa_lock
+        self._dfa_lock = threading.Lock()
         for op in pipeline:
             if isinstance(op, op_ir.Project):
                 self.proj_cols = [self._col(c) for c in op.cols]
@@ -241,12 +253,28 @@ class CompiledPipeline:
                 self.distinct = op
             elif isinstance(op, op_ir.JoinSmall):
                 self.join = op
+            elif isinstance(op, op_ir.RegexMatch):
+                self.regex = compile_regex(op.pattern)
             elif isinstance(op, op_ir.Crypt):
                 if op.when == "pre":
                     self.crypt_pre = op
                 else:
                     self.crypt_post = op
-        self.kind = ("groups" if (self.group is not None
+        if schema.str_width:
+            if self.regex is None:
+                raise NotImplementedError(
+                    "string tables run RegexMatch only in the port: the JAX "
+                    "pipeline runs other verbs over their raw bytes as the "
+                    "rows kind, which the port refuses (ROADMAP.md queue 3)")
+            if self.crypt_pre is not None:
+                raise NotImplementedError(
+                    "Crypt(pre) over a string table is not ported yet: the "
+                    "byte cipher comes with ROADMAP.md queue 1, slice 4b")
+        elif self.regex is not None:
+            raise ValueError("RegexMatch runs over a string table "
+                             "(str_width > 0)")
+        self.kind = ("mask" if self.regex is not None else
+                     "groups" if (self.group is not None
                                   or self.distinct is not None) else "rows")
         # the columns the body reads, as indices into the work it sees
         grouping = self.group or self.distinct
@@ -297,15 +325,36 @@ class CompiledPipeline:
         return width
 
     # ------------------------------------------------------------ public API
-    def __call__(self, rows, row_ids=None, *, build=None,
+    def __call__(self, rows, row_ids=None, *, lengths=None, build=None,
                  device=None) -> PipelineResult:
         """Rows already materialized: (n, w) f32, numpy or a tensor, moved
         to `device` (None means the CUDA card; pass "cpu" for the plain
         versions). `row_ids` (optional, (n,)) are the rows' indices in the
         original un-partitioned table: they key the positional CTR
         keystream and ride the packing as survivor ids. `build` is a
-        JoinSmall pipeline's build table (see `_as_build`)."""
+        JoinSmall pipeline's build table (see `_as_build`). A string
+        table's rows are (n, w) uint8 bytes with (n,) int32 `lengths`,
+        uploaded through pinned memory; its mask ships n bytes and reads
+        n * w."""
         device = resolve_device(device, "CompiledPipeline.__call__")
+        if self.kind == "mask":
+            if row_ids is not None:
+                raise NotImplementedError(
+                    "partitioned string requests (row_ids) are not ported "
+                    "yet: they come with ROADMAP.md queue 1, slice 4b")
+            if lengths is None:
+                raise ValueError("a string table's rows need their lengths")
+            strings = _upload(rows, torch.uint8, device)
+            lens = _upload(lengths, torch.int32, device)
+            if strings.dim() != 2 or tuple(lens.shape) != strings.shape[:1]:
+                raise ValueError(f"strings (n, w) and lengths (n,), got "
+                                 f"{tuple(strings.shape)} and "
+                                 f"{tuple(lens.shape)}")
+            n, w = strings.shape
+            nv = torch.full((1,), n, dtype=torch.int32, device=device)
+            payload = self._strings_body(strings[None], lens[None], nv,
+                                         np.asarray([n]))
+            return self._wrap(self._split(payload, 0, n), n * w)
         rows = torch.as_tensor(rows, dtype=torch.float32).to(device)
         n = int(rows.shape[0])
         n_valid = torch.full((1,), n, dtype=torch.int32, device=rows.device)
@@ -362,6 +411,36 @@ class CompiledPipeline:
                            self._pages_read_bytes(int(nv[i]), row_words))
                 for i in range(b)]
 
+    def run_strings_batched(self, strings, lengths, n_valid, *,
+                            widths=None, device=None) -> list[PipelineResult]:
+        """Stacked string round: strings (B, n, w) uint8 bytes, lengths
+        (B, n) int32 (numpy, host tensors — a pinned one is uploaded
+        without a copy — or tensors on `device`), n_valid (B,) host ints.
+
+        One dfa_match launch serves the whole stack. Rows past a request's
+        n_valid (bucket padding) are masked out of its match mask and
+        excluded from shipped/read accounting; `widths` (each request's
+        byte width before padding) keeps the read accounting exact under
+        width bucketing. Each request's mask is cut back to its own
+        length."""
+        device = resolve_device(device,
+                                "CompiledPipeline.run_strings_batched")
+        if self.kind != "mask":
+            raise ValueError("run_strings_batched runs a RegexMatch pipeline "
+                             "over a string table")
+        strings = _upload(strings, torch.uint8, device)
+        lengths = _upload(lengths, torch.int32, device)
+        nv = np.asarray(n_valid, np.int64)
+        b, n, w = strings.shape
+        ws = (np.full((b,), w, np.int64) if widths is None
+              else np.asarray(widths, np.int64))
+        payload = self._strings_body(strings, lengths,
+                                     _upload(nv, torch.int32, device),
+                                     np.clip(nv, 0, n))
+        return [self._wrap(self._split(payload, i, int(nv[i])),
+                           int(nv[i]) * int(ws[i]))
+                for i in range(b)]
+
     @staticmethod
     def _split(payload: dict, b: int, nv: int) -> dict:
         """Request b's slice of a stacked payload, row-shaped tensors cut
@@ -370,7 +449,7 @@ class CompiledPipeline:
         out = {}
         for k, v in payload.items():
             v = v[b]
-            if k in ("rows", "ids", "ovf_keys", "ovf_vals"):
+            if k in ("rows", "mask", "ids", "ovf_keys", "ovf_vals"):
                 v = v[:nv]
             out[k] = v
         return out
@@ -441,6 +520,10 @@ class CompiledPipeline:
 
     def _gather_run(self, buf, pages, n_valid, row_ids, build, n_rows,
                     row_words):
+        if self.kind == "mask":
+            raise ValueError("a string table's bytes ride its request, not "
+                             "the pool: call the pipeline with lengths= or "
+                             "run_strings_batched")
         if self._columnar_read():
             work = fpool.gather_columns(
                 buf, pages, n_rows, row_words,
@@ -543,6 +626,25 @@ class CompiledPipeline:
         if ids_packed is not None:
             out["ids"] = ids_packed
         return out
+
+    def _strings_body(self, strings: torch.Tensor, lengths: torch.Tensor,
+                      n_valid: torch.Tensor, shipped: np.ndarray) -> dict:
+        """RegexMatch over the (B, n, w) byte stack: the match mask of the
+        rows below n_valid, and a 1-byte decision per valid row (`shipped`,
+        host ints: the reference's count of valid rows). Every other
+        stage is skipped, a post-Crypt too, as in the reference."""
+        table, accept = self._dfa_on(strings.device)
+        mask = kops.regex_match(strings, lengths, table, accept, n_valid)
+        return {"mask": mask, "shipped": shipped}
+
+    def _dfa_on(self, device: torch.device) -> tuple:
+        """The DFA's (table, accept) on `device`, uploaded on first use
+        there (pinned, non-blocking) and kept for every later dispatch."""
+        with self._dfa_lock:
+            found = self._dfa.get(device)
+            if found is None:
+                found = self._dfa[device] = prepare_dfa(*self.regex, device)
+        return found
 
     def _group_body(self, work: torch.Tensor, sel_ops, sel_vals,
                     n_valid: torch.Tensor) -> dict:

@@ -1,13 +1,13 @@
 """FTable: fixed-width row-format table schema (paper §4.2, §6.1).
 
-Port of `repro/core/table.py` for word tables. The paper's evaluation
+Port of `repro/core/table.py`. The paper's evaluation
 tables are 8 attributes x 8 bytes, row format; the reproduction keeps the
 row format and the attribute count but uses 4-byte words as the attribute
 cell (f32 / int32 stored as f32). Integer columns must stay within +-2^24
 to survive the f32 word exactly; ingest enforces this. String tables
-(`str_width`) come with the regex slice (ROADMAP.md queue 1, slice 4): the
-field is kept so the schema mirrors the reference, and the port's pipeline
-rejects such tables.
+(`str_width`, `string_table`) keep their bytes outside the pool: a
+request carries them as a byte sideband (`strings=` / `lengths=`), and
+the pipeline runs RegexMatch over them.
 """
 from __future__ import annotations
 
@@ -81,3 +81,16 @@ class FTable:
             out[c.name] = (np.rint(col).astype(np.int32)
                            if c.dtype == "i32" else col)
         return out
+
+
+def string_table(name: str, strings: list[bytes], width: int) -> tuple:
+    """Build an FTable + (n, width) uint8 matrix + lengths for byte strings."""
+    ft = FTable(name=name, columns=(Column("bytes", "str"),),
+                n_rows=len(strings), str_width=width)
+    mat = np.zeros((len(strings), width), np.uint8)
+    lens = np.zeros((len(strings),), np.int32)
+    for i, s in enumerate(strings):
+        b = s[:width]
+        mat[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return ft, mat, lens

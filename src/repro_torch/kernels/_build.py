@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("select_project.cu", "ctr_crypt.cu", "hash_group.cu",
-           "hash_join.cu")
+           "hash_join.cu", "dfa_match.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -59,6 +59,12 @@ _SIGNATURES = {
         "hj_probe": ([_P, _LL, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _LL,
                       _I, _P], _I),
         "hj_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dfa_match.cu": {
+        "dfa_match": ([_P, _P, _P, _P, _P, _I, _P, _LL, _I, _I, _P], _I),
+        "dfa_max_states": ([], _I),
+        "dfa_max_width": ([], _I),
+        "dfa_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -141,8 +147,12 @@ def lib(src: str) -> ctypes.CDLL:
 def upload(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Host values -> a tensor on `device` without synchronising: on the
     card through pinned memory and a non-blocking copy (a copy from
-    pageable host memory waits for the stream's queued work)."""
+    pageable host memory waits for the stream's queued work; a host
+    tensor already pinned is not copied again). A tensor already on a
+    device is moved with `.to`."""
     t = torch.as_tensor(values, dtype=dtype)
+    if t.device.type != "cpu":
+        return t.to(device)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ctr_crypt as _ctr
+from repro_torch.kernels import dfa_match as _dfa
 from repro_torch.kernels import hash_group as _hg
 from repro_torch.kernels import hash_join as _hj
 from repro_torch.kernels import ref
@@ -45,6 +46,31 @@ def crypt(data: torch.Tensor, key, nonce: int,
     is given."""
     fn = _pick(data, _ctr.ctr_crypt, _ctr.ctr_crypt_plain)
     return fn(data, key, nonce, idx)
+
+
+# ---------------------------------------------------------------------------
+# regex
+# ---------------------------------------------------------------------------
+def regex_match(strings: torch.Tensor, lengths: torch.Tensor, table,
+                accept, n_valid: torch.Tensor | None = None):
+    """strings (N, L) or (B, N, L) uint8; lengths (N,) / (B, N) int32 on
+    the strings' device; table (S, 256) and accept (S,): host arrays
+    (checked and uploaded by `dfa_match.prepare_dfa`) or its result;
+    n_valid (B,)
+    int32 on the strings' device, or None for every row. Returns the (N,)
+    / (B, N) bool match mask of `repro.kernels.ref.dfa_match`, rows at or
+    past n_valid[b] False."""
+    if not isinstance(table, torch.Tensor):
+        table, accept = _dfa.prepare_dfa(table, accept, strings.device)
+    flat = strings.dim() == 2
+    if flat:
+        strings, lengths = strings[None], lengths[None]
+    if n_valid is None:
+        n_valid = torch.full((strings.shape[0],), strings.shape[1],
+                             dtype=torch.int32, device=strings.device)
+    fn = _pick(strings, _dfa.dfa_match, _dfa.dfa_match_plain)
+    mask = fn(strings, lengths, n_valid, table, accept)
+    return mask[0] if flat else mask
 
 
 # ---------------------------------------------------------------------------

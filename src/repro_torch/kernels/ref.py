@@ -6,7 +6,8 @@ alike. Only the functions the ported slices need are here: the
 rows kind's `eval_predicate`, `select_project`, `threefry2x32` and
 `ctr_crypt`, and the grouping's `bucket_of`, `sort_by_bucket`,
 `segment_spans`, `segmented_reduce`, `group_aggregate` and
-`group_aggregate_exact`, and the join's `hash_join`.
+`group_aggregate_exact`, the join's `hash_join` and the regex verb's
+`dfa_match`.
 
 Cipher words are uint32 in the reference. torch on the CPU has no add,
 shift or compare for `torch.uint32`, so the cipher carries its words in
@@ -333,3 +334,27 @@ def hash_join(probe_keys: torch.Tensor, build_keys: torch.Tensor,
     hit = sk[idx] == probe_keys
     joined = torch.where(hit[..., None], bits[idx], 0)
     return joined.view(torch.float32), hit
+
+
+# ---------------------------------------------------------------------------
+# dfa_match (regex)
+# ---------------------------------------------------------------------------
+def dfa_match(strings: torch.Tensor, lengths: torch.Tensor,
+              table: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
+    """Run a DFA over each row of byte-strings.
+
+    strings: (..., R, L) uint8 (0-padded). lengths: (..., R) int32.
+    table: (S, 256) int32 transition table. accept: (S,) bool.
+    Semantics: start in state 0, consume chars [0, len); accept iff the state
+    after the last consumed char is accepting (a length above L consumes
+    the L chars, one of 0 or below none). Returns the (..., R) bool mask.
+    The contract of `repro.kernels.ref.dfa_match`, over any number of
+    leading stack axes."""
+    dev = strings.device
+    table = table.to(dev, torch.int64)
+    lengths = lengths.to(dev)
+    state = torch.zeros(strings.shape[:-1], dtype=torch.int64, device=dev)
+    for t in range(strings.shape[-1]):
+        nxt = table[state, strings[..., t].to(torch.int64)]
+        state = torch.where(t < lengths, nxt, state)
+    return accept.to(dev, torch.bool)[state]

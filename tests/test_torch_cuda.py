@@ -13,7 +13,10 @@ row, one bucket and many, more than 16 value columns, the grouping's
 special values (subnormals, +-0.0, +-inf, NaN, saturated keys, drop-key
 rows) and its determinism, the join probe over empty, small and
 larger-than-shared-memory builds with special keys and values, and a
-warm join round flushed without a host sync.
+warm join round flushed without a host sync; the DFA kernel at widths of
+every alignment (1..1000 bytes, a stack starting off a 16-byte boundary),
+lengths below 0, 0 and past the width, 2..256 states, zero-width rows,
+and stacked string rounds flushed without a host sync.
 """
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ import repro_torch as fv
 from repro_torch.core import operators as op
 from repro_torch.core.pipeline import _DROP_KEY
 from repro_torch.kernels import ctr_crypt as tctr
+from repro_torch.kernels import dfa_match as tdfa
 from repro_torch.kernels import hash_group as thg
 from repro_torch.kernels import hash_join as thj
 from repro_torch.kernels import select_project as tsp
@@ -300,6 +304,123 @@ def test_hash_join_kernel_widens_rows_wider_than_the_tile(card, k):
                               out=torch.empty((2, n, 44), device=card))
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+def _dfa_input(seed, b, n, w):
+    """(b, n, w) bytes over letters, 0 and >= 128, with tokens the test
+    patterns match planted in a fifth of the rows each; lengths in
+    [-3, w + 3] (below 0, 0 and above the width among them)."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"aeerrxzfq \x00\x80\xff", np.uint8)
+    mat = alphabet[rng.integers(0, alphabet.size, (b, n, w))]
+    for tok in (b"err", b"exxfr", b"eaqrx"):
+        if len(tok) <= w:
+            rows = rng.random((b, n)) < 0.2
+            at = int(rng.integers(0, w - len(tok) + 1))
+            mat[rows, at: at + len(tok)] = np.frombuffer(tok, np.uint8)
+    lens = rng.integers(-3, w + 4, (b, n)).astype(np.int32)
+    return mat, lens
+
+
+@pytest.mark.parametrize("w", [1, 3, 16, 17, 32, 40, 64, 128, 253, 1000])
+@pytest.mark.parametrize("pattern", ["err", "e(r|x)+[a-f]*r?",
+                                     "(a|e)....[xz]"])
+def test_dfa_match_kernel_matches_plain(card, w, pattern):
+    """Widths of every alignment (tiles of 256 rows up to 252 bytes, fewer
+    above), ragged n_valid (0, 1, past n), and a stack that starts one
+    byte into its buffer."""
+    from repro_torch.core.regex import compile_regex
+    b, n = 3, 5000
+    mat, lens = _dfa_input(w, b, n, w)
+    table, accept = tdfa.prepare_dfa(*compile_regex(pattern), card)
+    strings = torch.from_numpy(mat).to(card)
+    lengths = torch.from_numpy(lens).to(card)
+    for nv in ([n, n - 1, 0], [1, 257, n + 9]):
+        n_valid = torch.tensor(nv, dtype=torch.int32, device=card)
+        before = tdfa.dfa_match.launches
+        got = tdfa.dfa_match(strings, lengths, n_valid, table, accept)
+        exp = tdfa.dfa_match_plain(strings, lengths, n_valid, table, accept)
+        torch.cuda.synchronize()
+        assert tdfa.dfa_match.launches == before + 1
+        assert torch.equal(got, exp)
+    assert 0 < int(exp.sum()) < exp.numel() or w < 16
+    buf = torch.zeros(b * n * w + 1, dtype=torch.uint8, device=card)
+    buf[1:] = strings.view(-1)
+    got = tdfa.dfa_match(buf[1:].view(b, n, w), lengths, n_valid, table,
+                         accept)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+def test_dfa_match_kernel_takes_256_states_and_refuses_more(card):
+    rng = np.random.default_rng(3)
+    mat, lens = _dfa_input(5, 2, 3000, 40)
+    strings = torch.from_numpy(mat).to(card)
+    lengths = torch.from_numpy(lens).to(card)
+    n_valid = torch.tensor([3000, 1500], dtype=torch.int32, device=card)
+    for s in (2, 200, 256):
+        table, accept = tdfa.prepare_dfa(
+            rng.integers(0, s, (s, 256)), rng.random(s) < 0.5, card)
+        got = tdfa.dfa_match(strings, lengths, n_valid, table, accept)
+        exp = tdfa.dfa_match_plain(strings, lengths, n_valid, table, accept)
+        torch.cuda.synchronize()
+        assert torch.equal(got, exp)
+    table, accept = tdfa.prepare_dfa(rng.integers(0, 257, (257, 256)),
+                                     np.ones(257, bool), card)
+    with pytest.raises(ValueError, match="states"):
+        tdfa.dfa_match(strings, lengths, n_valid, table, accept)
+    # zero-width strings: every valid row ends in state 0
+    empty = torch.empty((2, 3000, 0), dtype=torch.uint8, device=card)
+    table, accept = tdfa.prepare_dfa(np.zeros((1, 256)), [True], card)
+    got = tdfa.dfa_match(empty, lengths, n_valid, table, accept)
+    exp = tdfa.dfa_match_plain(empty, lengths, n_valid, table, accept)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp) and int(got.sum()) == 4500
+
+
+def test_string_round_never_waits_and_matches_the_cpu(card):
+    """Stacked regex rounds of mixed rows and widths (one dispatch per
+    signature) and a solo string request flush under sync debug mode
+    "error"; masks and byte counts equal the CPU node's."""
+    results = []
+    for device in (card, torch.device("cpu")):
+        node = fv.FViewNode(8 * 2**20, n_regions=5, device=device)
+        qps = [fv.open_connection(node) for _ in range(5)]
+        sizes = [(3000, 64), (2500, 48), (2100, 64), (2049, 40), (100, 16)]
+        reqs_in = []
+        for i, (n, w) in enumerate(sizes):
+            mat, lens = _dfa_input(i, 1, n, w)
+            ft = fv.FTable(f"s{i}", (fv.Column("bytes", "str"),), n_rows=n,
+                           str_width=w)
+            reqs_in.append((ft, mat[0], lens[0]))
+        pipes = [(op.RegexMatch("err"),),
+                 (op.RegexMatch("e(r|x)+[a-f]*r?"),
+                  op.Crypt((4, 5), 6, "post"))]
+        before = (tdfa.dfa_match.launches, tctr.ctr_crypt.launches,
+                  node.dispatches)
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            reqs = [fv.submit_request(qp, ft, p, strings=m, lengths=ln)
+                    for p in pipes for qp, (ft, m, ln) in zip(qps, reqs_in)]
+            node.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # per pipeline: the four 4096-row requests stack, the 100-row one
+        # runs alone
+        assert node.dispatches == before[2] + 4
+        if device.type == "cuda":
+            assert (tdfa.dfa_match.launches, tctr.ctr_crypt.launches) == (
+                before[0] + 4, before[1])
+        res = [r.wait() for r in reqs]
+        assert all(r.mask.device.type == device.type for r in res)
+        results.append(([r.mask.cpu() for r in res],
+                        [(r.shipped_bytes, r.read_bytes) for r in res]))
+    (mask_g, meta_g), (mask_c, meta_c) = results
+    assert meta_g == meta_c
+    assert meta_c[0] == (3000, 3000 * 64)
+    for g, c in zip(mask_g, mask_c):
+        assert torch.equal(g, c)
 
 
 def test_flush_never_waits_for_the_card(card):

@@ -2,7 +2,8 @@
 neither jax nor anything of the JAX package `repro`.
 
 Two checks: a subprocess imports `repro_torch`, runs a selection, a
-join and a GroupBy request (merged client-side) on the CPU and then finds no `jax`
+join, a GroupBy request (merged client-side) and a RegexMatch over a
+string table on the CPU and then finds no `jax`
 and no `repro` module loaded; an AST scan of
 every port file (and of `chip_smoke.py`) finds no such import statement.
 """
@@ -40,6 +41,11 @@ group = (op.GroupBy("a", ("b",), n_buckets=16),)
 merged = fv.merge_group_partials(ft, group,
                                  [fv.farview_request(qp, ft, group)])
 assert sorted(merged.groups) == list(range(0, 128, 2)), merged.groups
+sft, mat, lens = fv.string_table("s", [b"error: disk", b"fine", b"an error"],
+                                 16)
+res = fv.farview_request(qp, sft, (op.RegexMatch("err(or)?"),),
+                         strings=mat, lengths=lens)
+assert res.mask.tolist() == [True, False, True], res.mask
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

@@ -17,6 +17,7 @@ from repro.core import operators as jop
 from repro.core.pipeline import compile_pipeline as jax_compile
 from repro.core.table import Column as JColumn
 from repro.core.table import FTable as JFTable
+from repro.core.table import string_table as jstring_table
 from repro_torch.core import operators as op
 from repro_torch.core.errors import FarviewError
 from repro_torch.core.pipeline import (cache_builds, compile_pipeline,
@@ -211,10 +212,10 @@ JOIN = op.JoinSmall("c0", "build", "k", ("v",))
 
 
 @pytest.mark.parametrize("pipeline,slice_no", [
-    ((op.RegexMatch("ab+"),), "slice 4"),
-], ids=["regex"])
+    ((op.Crypt(KEY_PRE, 3, "pre"), op.RegexMatch("ab+")), "slice 4b"),
+], ids=["pre_crypt_regex"])
 def test_later_slices_are_refused_at_construction(pipeline, slice_no):
-    schema, _ = _schemas()
+    schema = FTable("s", (Column("bytes", "str"),), str_width=16)
     with pytest.raises(NotImplementedError, match=slice_no):
         CompiledPipeline(schema, pipeline)
 
@@ -233,3 +234,20 @@ def test_string_tables_are_refused():
     schema = FTable("s", (Column("bytes", "str"),), str_width=16)
     with pytest.raises(NotImplementedError, match="string tables"):
         CompiledPipeline(schema, PIPELINES["pack"])
+
+
+def test_string_table_without_regex_is_a_recorded_divergence():
+    """The JAX pipeline runs a string table's raw bytes as the rows kind
+    (one 4-byte word a row shipped, though w = 16); the port refuses the
+    table at construction (ROADMAP.md queue 3). The port also refuses
+    RegexMatch over a word table."""
+    strs = [b"error: disk full", b"all fine", b"warn: error"]
+    jft, mat, lens = jstring_table("s", strs, 16)
+    got = jax_compile(jft, (jop.Pack(),))(jnp.asarray(mat),
+                                          jnp.asarray(lens)).finalize()
+    assert (got.count, got.shipped_bytes, got.read_bytes) == (3, 12, 48)
+    schema = FTable("s", (Column("bytes", "str"),), str_width=16)
+    with pytest.raises(NotImplementedError, match="queue 3"):
+        CompiledPipeline(schema, (op.Pack(),))
+    with pytest.raises(ValueError, match="string table"):
+        CompiledPipeline(_schemas()[0], (op.RegexMatch("ab+"),))
