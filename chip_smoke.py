@@ -82,7 +82,28 @@ Phases (any failure exits non-zero; nothing is caught):
    4b; per-verb p50 under sync debug mode "error" and a traced round
    splitting device time into the upload of the byte sideband, dfa_match
    and the rest;
-10. a JSON line with every kernel's numbers, and the last line
+10. the decode_attention kernel against its plain version on the card at
+   the far-KV path's shape (granite-3-8b's attention block, Hq=32, Hkv=8,
+   D=128, over a pool of P=16 shards x B=8 sequences x 2048 rows), bf16
+   and f32 caches, lengths 0, 1, ragged and 2048; G=1, G=8, D=64 and
+   D=256; l and m within 1e-5 (m exactly -1e30 where a length is 0), o
+   within 1e-5 of its sum of |p v| (f32 sums in another order than
+   cuBLAS's), both measured against an f64 computation too; timed beside
+   the plain version and, as a yardstick that gives only the merged output,
+   `scaled_dot_product_attention(enable_gqa=True)` with the length mask
+   over the unsharded cache, with its bound;
+11. the far-KV path: granite-3-8b's attention block at full width
+   (d_model 4096, bf16 weights and cache, random from --seed), B=8
+   sequences of ragged lengths 1..32752 over a pool of 16 shards x 2048
+   rows (benchmarks/bench_far_kv.py's shape; a 1 GiB cache per layer,
+   depth cut to one block), 16 decode steps through `far_kv.attend_block`
+   in each of far, naive and local mode (each sequence appending at its
+   own end; the far steps under sync debug mode "error"), every step's
+   output held against the other modes and against a plain step over the
+   unsharded cache (full attention in plain torch); counted (one
+   decode_attention launch a step); p50 per mode, a traced step per mode
+   and the modelled shipped bytes per layer;
+12. a JSON line with every kernel's numbers, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits 2 without a result where torch sees no CUDA device.
@@ -136,6 +157,20 @@ REGEX_WIDTH = 64
 # 4, 4 and 64 DFA states (compile_regex's default cap is 64)
 REGEX_PATTERNS = ("err", "e(r|x)+[a-f]*r?", "(a|e)....[xz]")
 DFA_WIDTHS = (16, 32, 64, 128, 17, 40)   # Fig. 10's widths + two unaligned
+# far-KV: granite-3-8b's attention block (src/repro/configs/granite_3_8b.py:
+# d_model 4096, 32 heads, 8 KV heads, head_dim 128) over benchmarks/
+# bench_far_kv.py's pool: B=8 sequences, 16 shards of 2048 rows each
+KV_D_MODEL, KV_HQ, KV_HKV, KV_DH = 4096, 32, 8, 128
+KV_BATCH, KV_SHARDS, KV_SHARD_ROWS = 8, 16, 2048
+KV_STEPS = 16
+KV_MODES = ("far", "naive", "local")
+# bf16 weights, activations and cache: a step's outputs agree within 2e-2 of
+# the largest |output| (bf16 keeps 8 bits; the modes round in other places)
+KV_BF16_TOL = 2e-2
+# decode_attention vs its plain version: l and m allclose (rtol = atol =
+# DA_TOL); o, a sum of up to 2048 signed terms added in another order than
+# cuBLAS's, within DA_TOL of its sum of |terms| (the rule of group sums)
+DA_TOL = 1e-5
 
 
 def parse_args(argv):
@@ -819,15 +854,7 @@ def profile_rounds(fv, node, qps, verbs, report, focus=None):
                 r.wait()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side events only (kernels, copies): the host ops that
-        # launched them carry the same time again
-        per: dict = {}
-        for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                d, c = per.get(evt.name, (0.0, 0))
-                per[evt.name] = (d + evt.time_range.elapsed_us(), c + 1)
-        rows = sorted(((d, k, c) for k, (d, c) in per.items()),
-                      reverse=True)
+        rows = device_rows(prof)
         busy = sum(r[0] for r in rows)
         h2d = sum(d for d, k, _ in rows if "HtoD" in k)
         report(f"profile {name}: wall {wall_us / 1e3:.3f} ms, device busy "
@@ -849,6 +876,18 @@ def profile_rounds(fv, node, qps, verbs, report, focus=None):
                    f"{100 * busy / wall_us:.1f}%, idle "
                    f"{100 - 100 * busy / wall_us:.1f}% of "
                    f"{wall_us / 1e3:.3f} ms")
+
+
+def device_rows(prof):
+    """[(device us, name, count)] of a trace's device-side events
+    (kernels, copies), largest first: the host ops that launched them
+    carry the same time again."""
+    per: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            d, c = per.get(evt.name, (0.0, 0))
+            per[evt.name] = (d + evt.time_range.elapsed_us(), c + 1)
+    return sorted(((d, k, c) for k, (d, c) in per.items()), reverse=True)
 
 
 def plain_groups(hg, sp, op, words, pipe, n_valid):
@@ -1453,6 +1492,292 @@ def sideband_split(tables, report):
     del pinned, dev
 
 
+def da_lengths(gen, p, b, s, kind):
+    """(P, B) int32 lengths on the card: "full" (S), or "mixed": 0, 1 and
+    S spread over the grid, the rest uniform in [0, S]."""
+    if kind == "full":
+        return torch.full((p, b), s, dtype=torch.int32, device="cuda")
+    lens = torch.randint(0, s + 1, (p * b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens[0::4], lens[1::4], lens[2::4] = 0, 1, s
+    return lens.view(p, b)
+
+
+def da_inputs(gen, shape, dtype, lengths):
+    """Kernel-check inputs on the card: q (P, B, Hkv*G, D) f32, k and v
+    (P, B, S, Hkv, D) N(0, 1) in `dtype`, lengths by `da_lengths`."""
+    p, b, s, hkv, g, d = shape
+    q = torch.randn((p, b, hkv * g, d), generator=gen, device="cuda")
+    k = torch.randn((p, b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((p, b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, da_lengths(gen, p, b, s, lengths)
+
+
+def f64_partials(q, k, v, lens, scale):
+    """The kernel's function in f64 (an accuracy yardstick for both the
+    kernel and its plain version)."""
+    p, b, hq, d = q.shape
+    s, hkv = k.shape[2], k.shape[3]
+    qd = q.double().view(p, b, hkv, hq // hkv, d)
+    sc = torch.einsum("pbhgd,pbshd->pbhgs", qd, k.double()) * scale
+    valid = torch.arange(s, device="cuda") < lens[..., None, None, None]
+    sc = sc.masked_fill(~valid, float("-inf"))
+    m = sc.amax(dim=-1).clamp(min=-1e30)
+    w = torch.where(valid, torch.exp(sc - m[..., None]), 0.0)
+    o = torch.einsum("pbhgs,pbshd->pbhgd", w, v.double())
+    return o.view(p, b, hq, d), m.view(p, b, hq), w.sum(-1).view(p, b, hq)
+
+
+def check_da_case(da, q, k, v, lens, scale, name, report, f64=False):
+    """One kernel call against its plain version by the DA_TOL rules.
+    Returns the largest |o difference|."""
+    o, m, l = da.decode_attention(q, k, v, lens, scale)
+    eo, em, el = da.decode_attention_plain(q, k, v, lens, scale)
+    o_abs = da.decode_attention_plain(q, k, v.abs(), lens, scale)[0]
+    diff = (o - eo).abs()
+    if float((diff - DA_TOL * o_abs).max()) > 0:
+        raise AssertionError(f"decode_attention {name}: o off by more than "
+                             f"{DA_TOL} of its sum |p v|")
+    for got, exp, what in ((l, el, "l"), (m, em, "m")):
+        if not torch.allclose(got, exp, rtol=DA_TOL, atol=DA_TOL):
+            raise AssertionError(f"decode_attention {name}: {what} differs "
+                                 f"from the plain version")
+    empty = (lens == 0)[..., None].expand_as(m)
+    if not (bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+            and bool((o[empty] == 0).all())):
+        raise AssertionError(f"decode_attention {name}: an empty (p, b) is "
+                             f"not (0, -1e30, 0)")
+    o2 = da.decode_attention(q, k, v, lens, scale)[0]
+    if not torch.equal(o, o2):
+        raise AssertionError(f"decode_attention {name}: two launches differ")
+    err = float(diff.max())
+    loose = int((~torch.isclose(o, eo, rtol=DA_TOL, atol=DA_TOL)).sum())
+    line = (f"decode_attention {name}: max |o - plain| {err:.3e} (max of it "
+            f"over sum|p v| {float((diff / o_abs.clamp(min=1e-30)).max()):.3e}"
+            f"; {loose} of {o.numel()} outside allclose(1e-5, 1e-5)), "
+            f"lengths {int((lens == 0).sum())} zero / "
+            f"{int((lens == k.shape[2]).sum())} full of {lens.numel()}; "
+            f"deterministic")
+    if f64:
+        fo, fm, fl = f64_partials(q, k, v, lens, scale)
+        line += (f"; vs f64: kernel o {float((o.double() - fo).abs().max()):.3e}"
+                 f" l {float((l.double() - fl).abs().max()):.3e}, plain o "
+                 f"{float((eo.double() - fo).abs().max()):.3e} l "
+                 f"{float((el.double() - fl).abs().max()):.3e}")
+        del fo, fm, fl
+    report(line)
+    return err
+
+
+def check_decode_attention(da, gen, report):
+    """decode_attention vs its plain version on the card at the far-KV
+    path's shape and beside it; times the kernel, its plain version and
+    SDPA at the path's shape with every row valid. Returns the JSON entry."""
+    shape = (KV_SHARDS, KV_BATCH, KV_SHARD_ROWS, KV_HKV, KV_HQ // KV_HKV,
+             KV_DH)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for lengths in ("mixed", "full"):
+            q, k, v, lens = da_inputs(gen, shape, dtype, lengths)
+            err = max(err, check_da_case(
+                da, q, k, v, lens, KV_DH ** -0.5,
+                f"{str(dtype)[6:]} {lengths} {list(shape)}", report,
+                f64=dtype == torch.float32))
+            del q, k, v, lens
+    p, b, s = shape[:3]
+    for hkv, g, d in ((8, 1, 128), (4, 8, 128), (8, 4, 64), (8, 4, 256)):
+        sh = (p, b, s, hkv, g, d)
+        q, k, v, lens = da_inputs(gen, sh, torch.bfloat16, "mixed")
+        err = max(err, check_da_case(da, q, k, v, lens, d ** -0.5,
+                                     f"bf16 mixed {list(sh)}", report))
+        del q, k, v, lens
+    torch.cuda.empty_cache()
+
+    # timing at the path's shape, the path's query: (B, Hq, D) bf16,
+    # replicated over the shards
+    q, k, v, lens = da_inputs(gen, shape, torch.bfloat16, "full")
+    q = q[0].to(torch.bfloat16).expand(p, *q.shape[1:])
+    scale = KV_DH ** -0.5
+    ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens, scale))
+    plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens,
+                                                         scale),
+                       reps=3, warmup=1)
+    mixed = da_lengths(gen, p, b, s, "mixed")
+    mixed_ms = cuda_ms(lambda: da.decode_attention(q, k, v, mixed, scale))
+    # SDPA over the unsharded cache: (B, Hkv, S, D), the query (B, Hq, 1, D)
+    hkv, d = KV_HKV, KV_DH
+    ks = k.permute(1, 3, 0, 2, 4).reshape(b, hkv, p * s, d)
+    vs = v.permute(1, 3, 0, 2, 4).reshape(b, hkv, p * s, d)
+    qs = q[0][:, :, None]
+    glen = lens.sum(dim=0)
+    mask = (torch.arange(p * s, device="cuda") < glen[:, None])[:, None, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True)
+
+    library_ms = cuda_ms(sdpa)
+    o, m, l = da.decode_attention(q, k, v, lens, scale)
+    merged = (o * torch.exp(m - m.amax(0))[..., None]).sum(0) / (
+        l * torch.exp(m - m.amax(0))).sum(0)[..., None]
+    sdpa_err = float((sdpa()[:, :, 0].float() - merged).abs().max())
+    rows = int(lens.clamp(0, s).sum())
+    moved = (q.numel() * q.element_size() + 2 * rows * hkv * d
+             * k.element_size() + lens.numel() * 4
+             + (o.numel() + m.numel() + l.numel()) * 4)
+    flops = 4 * KV_HQ * d * rows
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+    report(f"decode_attention {list(shape)} bf16, every row valid: {ms:.3f} "
+           f"ms (ragged lengths {mixed_ms:.3f}); plain {plain_ms:.3f} ms; "
+           f"SDPA over the unsharded cache {library_ms:.3f} ms (merged "
+           f"output only; max |SDPA - merged partials| {sdpa_err:.3e}); bound "
+           f"{max(t_bytes, t_ops) * 1e3:.3f} ms (bytes {moved}: "
+           f"{t_bytes * 1e3:.3f}, flops {flops}: {t_ops * 1e3:.3f})")
+    del q, k, v, ks, vs, o, m, l, merged
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:88",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "shape": list(shape),
+            "ms_ragged": mixed_ms, "sdpa_max_abs_diff": sdpa_err}
+
+
+def plain_block_step(ref, x, ws, k_full, v_full, pos):
+    """The far-KV decode step in plain torch over the unsharded cache (B,
+    S, Hkv, D): the projections with the full weights, each sequence's
+    new row written at its position, full masked attention
+    (`ref.full_attention_oracle`), the out-projection."""
+    wq, wk, wv, wo = ws
+    b = x.shape[0]
+    rows = torch.arange(b, device="cuda")
+    k_full[rows, pos.long()] = (x @ wk).view(b, KV_HKV, KV_DH)
+    v_full[rows, pos.long()] = (x @ wv).view(b, KV_HKV, KV_DH)
+    q = (x @ wq).view(b, KV_HQ, KV_DH)
+    attn = ref.full_attention_oracle(q, k_full, v_full, pos + 1)
+    return attn.reshape(b, -1).to(x.dtype) @ wo
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()) / float(
+        b.float().abs().max())
+
+
+def far_kv_path(fk, ref, kernels, gen, seed, report):
+    """Drive granite-3-8b's attention block through `far_kv.attend_block`
+    in every mode for KV_STEPS decode steps, counted and checked; returns
+    the launches and the p50 ms of a step per mode."""
+    b, p, s_loc = KV_BATCH, KV_SHARDS, KV_SHARD_ROWS
+    s, dm, hq, hkv, dh = p * s_loc, KV_D_MODEL, KV_HQ, KV_HKV, KV_DH
+    rng = np.random.default_rng(seed)
+    full = [rng.standard_normal(sh, dtype=np.float32) / np.float32(
+        np.sqrt(sh[0])) for sh in ((dm, hq * dh), (dm, hkv * dh),
+                                   (dm, hkv * dh), (hq * dh, dm))]
+    heads = dict(n_q_heads=hq, n_kv_heads=hkv, head_dim=dh)
+    w = fk.block_weights_from_numpy(*full, tp=p, dtype=torch.bfloat16,
+                                    device="cuda", **heads)
+    ws = [torch.from_numpy(a).to("cuda", torch.bfloat16) for a in full]
+    k_full = torch.randn((b, s, hkv, dh), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    v_full = torch.randn((b, s, hkv, dh), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    lens_np = np.sort(rng.integers(1, s - KV_STEPS + 1, b))
+    lens_np[0], lens_np[-1] = 1, s - KV_STEPS
+    lens = torch.from_numpy(lens_np.astype(np.int32)).cuda()
+    caches = {mode: fk.shard_cache(k_full, v_full, tp=p, mode=mode,
+                                   device="cuda") for mode in KV_MODES}
+    xs = torch.randn((KV_STEPS, b, dm), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    empty = int((lens[None] <= torch.arange(p, device="cuda")[:, None]
+                 * s_loc).sum())
+    report(f"far-KV path: d_model {dm}, Hq {hq}, Hkv {hkv}, Dh {dh}, bf16; "
+           f"B={b} sequences of lengths {lens_np.tolist()} over {p} shards x "
+           f"{s_loc} rows ({empty} of {p * b} (shard, sequence) pairs "
+           f"empty); cache {k_full.numel() * 4} bytes (K and V)")
+
+    reset_launches(kernels)
+    times = {mode: [] for mode in KV_MODES}
+    errs = {mode: 0.0 for mode in KV_MODES}
+    modes_err = 0.0
+    for i in range(KV_STEPS):
+        pos = lens + i
+        outs = {}
+        for mode in KV_MODES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "far":   # nothing in a far step may wait for the card
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs[mode] = fk.attend_block(xs[i], w, *caches[mode], pos,
+                                             lens, mode=mode, **heads)[0]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+        plain = plain_block_step(ref, xs[i], ws, k_full, v_full, pos)
+        for mode in KV_MODES:
+            errs[mode] = max(errs[mode], rel_err(outs[mode], plain))
+            modes_err = max(modes_err, rel_err(outs[mode], outs["far"]))
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    if max(errs.values()) > KV_BF16_TOL or modes_err > KV_BF16_TOL:
+        raise AssertionError(f"far-KV path: outputs differ: vs the plain "
+                             f"step {errs}, between modes {modes_err}")
+    if launches["decode_attention"] != KV_STEPS * len(KV_MODES) or any(
+            n for name, n in launches.items() if name != "decode_attention"):
+        raise AssertionError(f"far-KV path: expected one decode_attention "
+                             f"launch a step, got {launches}")
+    far_k = caches["far"][0].transpose(0, 1).reshape(k_full.shape)
+    cache_err = rel_err(far_k, k_full)
+    if cache_err > KV_BF16_TOL:
+        raise AssertionError(f"far-KV path: the far cache differs from the "
+                             f"plain one ({cache_err})")
+    report(f"far-KV path: {KV_STEPS} steps x {len(KV_MODES)} modes, launches "
+           f"{launches}; far steps under sync debug mode \"error\"; max "
+           f"|out - plain step| / max |plain| {errs}, between modes "
+           f"{modes_err:.3e} (tolerance {KV_BF16_TOL}); far cache vs plain "
+           f"{cache_err:.3e}")
+    p50 = {f"far_kv_{mode}": statistics.median(t)
+           for mode, t in times.items()}
+    for mode in KV_MODES:
+        report(f"p50 far_kv_{mode}: {p50[f'far_kv_{mode}']:.3f} ms a decode "
+               f"step (runs {[round(t, 3) for t in times[mode]]}); shipped "
+               f"{fk.shipped_bytes_per_layer(mode, batch=b, hq=hq, hkv=hkv, head_dim=dh, seq_len=s, tp=p)}"
+               f" bytes a layer (modelled)")
+    del k_full, v_full, ws
+    pos = lens + KV_STEPS - 1            # the last step again: idempotent
+    for mode in KV_MODES:
+        trace_call(f"far_kv_{mode} step", lambda: fk.attend_block(
+            xs[-1], w, *caches[mode], pos, lens, mode=mode, **heads),
+            report)
+    del caches
+    return launches, p50
+
+
+def trace_call(name, fn, report, reps=5):
+    """`reps` traced calls after one untraced: a call's wall clock, the
+    device's busy share of it and the largest device items, per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    rows = [(d / reps, k, c // reps) for d, k, c in device_rows(prof)]
+    busy = sum(r[0] for r in rows)
+    report(f"profile {name}, per call of {reps}: wall {wall_us / 1e3:.3f} ms, "
+           f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%, "
+           f"idle {100 - 100 * busy / wall_us:.1f}%); top: "
+           + "; ".join(f"{k[:48]} x{c} {d / 1e3:.3f} ms"
+                       for d, k, c in rows[:8]))
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -1472,7 +1797,9 @@ def main(argv=None) -> int:
     from repro_torch.core import operators as op
     from repro_torch.kernels import _build
     from repro_torch.core.regex import compile_regex
+    from repro_torch.core import far_kv as fk
     from repro_torch.kernels import ctr_crypt as ctr
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import dfa_match as dfa
     from repro_torch.kernels import hash_group as hg
     from repro_torch.kernels import hash_join as hj
@@ -1484,7 +1811,11 @@ def main(argv=None) -> int:
                "hash_group": hg.group_aggregate,
                "group_prep": hg.group_prep,
                "hash_join": hj.hash_join,
-               "dfa_match": dfa.dfa_match}
+               "dfa_match": dfa.dfa_match,
+               "decode_attention": da.decode_attention}
+    # f32 products in full f32 (the defaults, stated): no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     def report(line):
         print(line, flush=True)
@@ -1521,6 +1852,8 @@ def main(argv=None) -> int:
     entries.append(check_dfa_match(dfa, compile_regex, gen, N_CONNECTIONS,
                                    report))
     torch.cuda.empty_cache()
+    entries.append(check_decode_attention(da, gen, report))
+    torch.cuda.empty_cache()
 
     node = fv.FViewNode(4 * 2**30, device="cuda")
     qps = [fv.open_connection(node) for _ in range(N_CONNECTIONS)]
@@ -1545,11 +1878,15 @@ def main(argv=None) -> int:
     p50.update(regex_p50)
     for qp in qps:
         fv.close_connection(qp)
+    torch.cuda.empty_cache()
+    kv_launches, kv_p50 = far_kv_path(fk, ref, kernels, gen, args.seed,
+                                      report)
+    p50.update(kv_p50)
     # launches: the counted runs of all paths together
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in (
             rows_launches, group_launches, join_launches, wide_launches,
-            regex_launches))
+            regex_launches, kv_launches))
     report(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     report(f"p50 ms per verb: {json.dumps(p50)}")
     print(json.dumps({"kernels": entries}))

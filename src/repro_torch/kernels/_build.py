@@ -10,7 +10,8 @@ straight from the build directory. Nothing here runs at import time: the
 first kernel launch (or `load_all()`) builds.
 
 Pointers and the stream cross as `ctypes.c_void_p`, sizes as `c_longlong`
-or `c_int`, and every launch function returns `cudaGetLastError()`.
+or `c_int`, an attention scale as `c_float`, and every launch function
+returns `cudaGetLastError()`.
 """
 from __future__ import annotations
 
@@ -27,11 +28,12 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("select_project.cu", "ctr_crypt.cu", "hash_group.cu",
-           "hash_join.cu", "dfa_match.cu")
+           "hash_join.cu", "dfa_match.cu", "decode_attention.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+_F = ctypes.c_float
 _SIGNATURES = {
     "select_project.cu": {
         "sp_count": ([_P, _P, _I, _P, _P, _LL, _I, _I, _P], _I),
@@ -65,6 +67,13 @@ _SIGNATURES = {
         "dfa_max_states": ([], _I),
         "dfa_max_width": ([], _I),
         "dfa_error_string": ([_I], ctypes.c_char_p),
+    },
+    "decode_attention.cu": {
+        "da_partial": ([_P] * 7 + [_LL, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+        "da_combine": ([_P] * 6 + [_LL, _I, _I, _I, _I, _P], _I),
+        "da_tile_rows": ([_I], _I),
+        "da_group_chunk": ([], _I),
+        "da_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

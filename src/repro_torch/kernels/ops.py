@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ctr_crypt as _ctr
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dfa_match as _dfa
 from repro_torch.kernels import hash_group as _hg
 from repro_torch.kernels import hash_join as _hj
@@ -71,6 +72,27 @@ def regex_match(strings: torch.Tensor, lengths: torch.Tensor, table,
     fn = _pick(strings, _dfa.dfa_match, _dfa.dfa_match_plain)
     mask = fn(strings, lengths, n_valid, table, accept)
     return mask[0] if flat else mask
+
+
+# ---------------------------------------------------------------------------
+# far-KV decode attention
+# ---------------------------------------------------------------------------
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float | None = None):
+    """q (B, Hq, D); k/v (B, S, Hkv, D) f32 or bf16; lengths (B,) integer,
+    on q's device. The contract of `repro.kernels.ops.decode_attention`
+    (no padding needed), but for an empty (b, head), whose m is -1e30 as
+    the Pallas kernel gives it. A stack of shards, q (P, B, Hq, D) with
+    k/v (P, B, S, Hkv, D) and lengths (P, B), runs in one launch. Returns
+    the unnormalized partials (o f32, m, l) for a cross-shard merge."""
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    flat = q.dim() == 3
+    if flat:
+        q, k, v, lengths = q[None], k[None], v[None], lengths[None]
+    fn = _pick(q, _da.decode_attention, _da.decode_attention_plain)
+    o, m, l = fn(q, k, v, lengths.to(torch.int32), scale)
+    return (o[0], m[0], l[0]) if flat else (o, m, l)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ alike. Only the functions the ported slices need are here: the
 rows kind's `eval_predicate`, `select_project`, `threefry2x32` and
 `ctr_crypt`, and the grouping's `bucket_of`, `sort_by_bucket`,
 `segment_spans`, `segmented_reduce`, `group_aggregate` and
-`group_aggregate_exact`, the join's `hash_join` and the regex verb's
-`dfa_match`.
+`group_aggregate_exact`, the join's `hash_join`, the regex verb's
+`dfa_match` and far-KV's `decode_attention`, `merge_partials` and
+`full_attention_oracle`.
 
 Cipher words are uint32 in the reference. torch on the CPU has no add,
 shift or compare for `torch.uint32`, so the cipher carries its words in
@@ -358,3 +359,64 @@ def dfa_match(strings: torch.Tensor, lengths: torch.Tensor,
         nxt = table[state, strings[..., t].to(torch.int64)]
         state = torch.where(t < lengths, nxt, state)
     return accept.to(dev, torch.bool)[state]
+
+
+# ---------------------------------------------------------------------------
+# decode_attention (far-KV partial flash attention)
+# ---------------------------------------------------------------------------
+NEG_INF = -1.0e30               # m of a (b, head) with no valid row
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, scale: float | None = None):
+    """Single-token GQA attention over a KV shard, returning merge partials.
+
+    q (..., Hq, D); k/v (..., S, Hkv, D); lengths (...) valid KV rows, over
+    any stack of leading axes. Query head j reads KV head j // (Hq / Hkv).
+    Returns o (..., Hq, D) un-normalized, o = sum(exp(s - m) v); m (...,
+    Hq) the max score; l (..., Hq) sum(exp(s - m)). All math in f32 over
+    the stored values. The contract of `repro.kernels.ref.decode_attention`
+    but for one deliberate change: a (b, head) with no valid row gets m =
+    NEG_INF (-1e30), as the Pallas kernel and `far_kv.partial_attention`
+    give it, not 0, so that merging it beside a shard of very negative
+    scores does not underflow (ROADMAP.md queue 3)."""
+    *lead, hq, d = q.shape
+    s, hkv = k.shape[-3], k.shape[-2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(d))
+    qf = q.float().reshape(*lead, hkv, g, d)
+    scores = torch.einsum("...hgd,...shd->...hgs", qf, k.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    valid = pos < lengths.to(q.device)[..., None, None, None]
+    scores = scores.masked_fill(~valid, float("-inf"))
+    if s == 0:
+        m = torch.full(scores.shape[:-1], NEG_INF, device=q.device)
+    else:
+        m = torch.clamp(scores.amax(dim=-1), min=NEG_INF)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    o = torch.einsum("...hgs,...shd->...hgd", p, v.float())
+    return (o.reshape(*lead, hq, d), m.reshape(*lead, hq),
+            p.sum(dim=-1).reshape(*lead, hq))
+
+
+def merge_partials(parts) -> torch.Tensor:
+    """Merge per-shard (o, m, l) partials into the final attention output.
+
+    parts: a list of (o, m, l). Returns the normalized (..., Hq, D) f32
+    output (the log-sum-exp weighted combine of `repro.kernels.ref.
+    merge_partials`)."""
+    os_ = torch.stack([p[0] for p in parts])
+    ms = torch.stack([p[1] for p in parts])
+    ls = torch.stack([p[2] for p in parts])
+    m = ms.amax(dim=0)
+    w = torch.exp(ms - m[None])
+    l = (ls * w).sum(dim=0)
+    o = (os_ * w[..., None]).sum(dim=0)
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def full_attention_oracle(q, k, v, lengths, scale=None) -> torch.Tensor:
+    """Plain masked softmax attention for testing partial merges."""
+    o, _, l = decode_attention(q, k, v, lengths, scale)
+    return o / torch.clamp(l, min=1e-30)[..., None]

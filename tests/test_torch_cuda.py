@@ -16,7 +16,11 @@ larger-than-shared-memory builds with special keys and values, and a
 warm join round flushed without a host sync; the DFA kernel at widths of
 every alignment (1..1000 bytes, a stack starting off a 16-byte boundary),
 lengths below 0, 0 and past the width, 2..256 states, zero-width rows,
-and stacked string rounds flushed without a host sync.
+and stacked string rounds flushed without a host sync; the far-KV
+decode_attention kernel at chip_smoke's shapes (granite-3-8b's block, G =
+1 and 8, D = 64 and 256, G past a block's 32 query rows, rows whose bytes
+take scalar loads), lengths 0, 1, ragged and full, f32 and bf16 caches,
+and far-KV decode steps flushed without a host sync.
 """
 import numpy as np
 import pytest
@@ -25,7 +29,9 @@ import torch
 import repro_torch as fv
 from repro_torch.core import operators as op
 from repro_torch.core.pipeline import _DROP_KEY
+from repro_torch.core import far_kv as tfk
 from repro_torch.kernels import ctr_crypt as tctr
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import dfa_match as tdfa
 from repro_torch.kernels import hash_group as thg
 from repro_torch.kernels import hash_join as thj
@@ -591,3 +597,125 @@ def test_full_and_distinct_without_device_run_on_the_card(card):
             np.testing.assert_array_equal(a, b)
     assert tops.distinct(keys, n_buckets=32) == sorted(set(keys.tolist()))
     assert thg.group_aggregate.launches == before + 2
+
+
+# ------------------------------------------------------------ decode_attention
+# (P, B, S, Hkv, G, D): chip_smoke's smoke shape (granite-3-8b's block over
+# a 16-shard pool of 2048 rows), G = 1, G = 8 at D = 64, D = 256, G past a
+# block's 32 query rows, and D = 20 (a bf16 row of 40 bytes: scalar loads)
+DA_SHAPES = [(16, 8, 2048, 8, 4, 128), (2, 3, 300, 2, 1, 64),
+             (2, 3, 300, 1, 8, 64), (2, 2, 100, 2, 4, 256),
+             (1, 2, 70, 2, 40, 32), (2, 2, 50, 2, 3, 20)]
+DA_TOL = dict(rtol=1e-5, atol=1e-5)      # f32 sums in other orders
+# o sums up to 2048 signed terms p v in f32 in another order than cuBLAS:
+# the two differ by up to 7.8e-5 where o is near 0 (on an H100), so o
+# is held within 1e-5 of its sum of |terms|, sum p |v| (the rule of the
+# group sums); l's terms are positive, so allclose is that rule for it
+DA_REL_TOL = 1e-5
+
+
+def _assert_sums_close(o, eo, o_abs):
+    excess = (o - eo).abs() - DA_REL_TOL * o_abs
+    assert float(excess.max()) <= 0.0, float((o - eo).abs().max())
+
+
+def _da_inputs(card, shape, dtype, seed=0):
+    p, b, s, hkv, g, d = shape
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    q = torch.randn((p, b, hkv * g, d), generator=gen, device=card)
+    k = torch.randn((p, b, s, hkv, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((p, b, s, hkv, d), generator=gen, device=card).to(dtype)
+    # 0, 1, full and ragged lengths, spread over the (p, b) grid
+    lens = torch.randint(0, s + 1, (p * b,), generator=gen, device=card)
+    lens[0::4] = 0
+    lens[1::4] = 1
+    lens[2::4] = s
+    return q, k, v, lens.view(p, b).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DA_SHAPES)
+def test_decode_attention_kernel_matches_plain(card, shape, dtype):
+    q, k, v, lens = _da_inputs(card, shape, dtype)
+    scale = shape[5] ** -0.5
+    before = tda.decode_attention.launches
+    o, m, l = tda.decode_attention(q, k, v, lens, scale)
+    eo, em, el = tda.decode_attention_plain(q, k, v, lens, scale)
+    torch.cuda.synchronize()
+    assert tda.decode_attention.launches == before + 1
+    o_abs = tda.decode_attention_plain(q, k, v.abs(), lens, scale)[0]
+    _assert_sums_close(o, eo, o_abs)
+    torch.testing.assert_close(l, el, **DA_TOL)
+    torch.testing.assert_close(m, em, **DA_TOL)
+    empty = (lens == 0)[..., None].expand_as(m)
+    assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+    assert bool((o[empty] == 0).all())
+    # deterministic: the splits fold in a fixed order
+    o2, m2, l2 = tda.decode_attention(q, k, v, lens, scale)
+    assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+
+
+def test_decode_attention_refuses_what_it_does_not_take(card):
+    q, k, v, lens = _da_inputs(card, (1, 2, 16, 2, 2, 32), torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tda.decode_attention(q, k.half(), v.half(), lens, 1.0)
+    with pytest.raises(ValueError, match="1..256"):
+        big = torch.zeros((1, 2, 4, 264), device=card)
+        kv = torch.zeros((1, 2, 16, 2, 264), device=card)
+        tda.decode_attention(big, kv, kv, lens, 1.0)
+    with pytest.raises(ValueError, match="one device"):
+        tda.decode_attention(q, k, v, lens.cpu(), 1.0)
+
+
+def _far_block(card, dtype, mode, tp=4, nq=8, nkv=2, dh=16, dm=32, b=3,
+               s=64, seed=3):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    ws = [(rng.normal(size=sh) / np.sqrt(sh[0])).astype(f) for sh in (
+        (dm, nq * dh), (dm, nkv * dh), (dm, nkv * dh), (nq * dh, dm))]
+    k = rng.normal(size=(b, s, nkv, dh)).astype(f)
+    v = rng.normal(size=(b, s, nkv, dh)).astype(f)
+    kw = dict(tp=tp, n_q_heads=nq, n_kv_heads=nkv, head_dim=dh)
+    w = tfk.block_weights_from_numpy(*ws, dtype=dtype, device=card, **kw)
+    kc, vc = tfk.shard_cache(torch.from_numpy(k).to(dtype),
+                             torch.from_numpy(v).to(dtype), tp=tp, mode=mode,
+                             device=card)
+    x = torch.from_numpy(rng.normal(size=(4, b, dm)).astype(f)).to(card,
+                                                                  dtype)
+    lens = torch.tensor([1, 17, 40], dtype=torch.int32, device=card)
+    return w, kc, vc, x, lens, dict(n_q_heads=nq, n_kv_heads=nkv,
+                                    head_dim=dh)
+
+
+@pytest.mark.parametrize("mode", ["far", "naive", "local"])
+def test_decode_step_never_waits_for_the_card(card, mode):
+    w, kc, vc, x, lens, kw = _far_block(card, torch.bfloat16, mode)
+    before = tda.decode_attention.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [tfk.attend_block(x[i], w, kc, vc, lens + i, lens, mode=mode,
+                                 **kw)[0] for i in range(4)]
+        # the mode is live: a step that read a value back would raise
+        with pytest.raises(RuntimeError):
+            outs[-1].sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tda.decode_attention.launches == before + 4
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+def test_decode_steps_on_the_card_match_the_cpu(card):
+    """Every mode on the card, f32, against the port on the CPU (the
+    plain version) step by step, and the modes against each other."""
+    got = {}
+    for mode in ("far", "naive", "local"):
+        for dev in (card, torch.device("cpu")):
+            w, kc, vc, x, lens, kw = _far_block(dev, torch.float32, mode)
+            got[mode, dev.type] = [
+                tfk.attend_block(x[i], w, kc, vc, lens + i, lens, mode=mode,
+                                 **kw)[0].cpu() for i in range(4)]
+    for (mode, _), outs in got.items():
+        for a, b in zip(outs, got["far", "cpu"]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -2,8 +2,8 @@
 neither jax nor anything of the JAX package `repro`.
 
 Two checks: a subprocess imports `repro_torch`, runs a selection, a
-join, a GroupBy request (merged client-side) and a RegexMatch over a
-string table on the CPU and then finds no `jax`
+join, a GroupBy request (merged client-side), a RegexMatch over a
+string table and a far-KV decode step on the CPU and then finds no `jax`
 and no `repro` module loaded; an AST scan of
 every port file (and of `chip_smoke.py`) finds no such import statement.
 """
@@ -46,6 +46,19 @@ sft, mat, lens = fv.string_table("s", [b"error: disk", b"fine", b"an error"],
 res = fv.farview_request(qp, sft, (op.RegexMatch("err(or)?"),),
                          strings=mat, lengths=lens)
 assert res.mask.tolist() == [True, False, True], res.mask
+import torch
+from repro_torch.core import far_kv
+eye = np.eye(8, dtype=np.float32)
+w = far_kv.block_weights_from_numpy(eye, eye[:, :4], eye[:, :4], eye, tp=2,
+                                    n_q_heads=4, n_kv_heads=2, head_dim=2,
+                                    device="cpu")
+kc, vc = far_kv.shard_cache(np.ones((1, 8, 2, 2), np.float32),
+                            np.ones((1, 8, 2, 2), np.float32), tp=2,
+                            mode="far", device="cpu")
+out, _, _ = far_kv.attend_block(torch.ones((1, 8)), w, kc, vc, 3,
+                                torch.tensor([3]), n_q_heads=4,
+                                n_kv_heads=2, head_dim=2)
+assert out.shape == (1, 8), out.shape
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
