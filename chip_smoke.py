@@ -91,7 +91,10 @@ Phases (any failure exits non-zero; nothing is caught):
    cuBLAS's), both measured against an f64 computation too; timed beside
    the plain version and, as a yardstick that gives only the merged output,
    `scaled_dot_product_attention(enable_gqa=True)` with the length mask
-   over the unsharded cache, with its bound;
+   over the unsharded cache, with its bound, its share of the bound, its
+   GB/s, its ratio to SDPA's time of the same run (printed, not asserted),
+   the blocks an SM and the split plan, and its time at other coverings of
+   the card by the grid (the split policy's `_WAVES`);
 11. the far-KV path: granite-3-8b's attention block at full width
    (d_model 4096, bf16 weights and cache, random from --seed), B=8
    sequences of ragged lengths 1..32752 over a pool of 16 shards x 2048
@@ -113,6 +116,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -171,6 +175,7 @@ KV_BF16_TOL = 2e-2
 # DA_TOL); o, a sum of up to 2048 signed terms added in another order than
 # cuBLAS's, within DA_TOL of its sum of |terms| (the rule of group sums)
 DA_TOL = 1e-5
+DA_BATCH = 20   # decode_attention and SDPA: launches a timed run
 
 
 def parse_args(argv):
@@ -179,8 +184,11 @@ def parse_args(argv):
     return ap.parse_args(argv)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of `reps` timed calls (CUDA events), after `warmup` calls."""
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
+    """Median of `reps` timed runs (CUDA events) of `batch` back-to-back
+    calls, per call, after `warmup` calls. With batch > 1 the host's launch
+    time hides behind the device's: the way to time a sub-millisecond
+    kernel whose wrapper runs Python."""
     for _ in range(warmup):
         fn()
     times = []
@@ -188,10 +196,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / batch)
     return statistics.median(times)
 
 
@@ -1598,12 +1607,17 @@ def check_decode_attention(da, gen, report):
     q, k, v, lens = da_inputs(gen, shape, torch.bfloat16, "full")
     q = q[0].to(torch.bfloat16).expand(p, *q.shape[1:])
     scale = KV_DH ** -0.5
-    ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens, scale))
+    # 20 launches back to back a timed run (the wrapper's Python hides behind
+    # the card), SDPA the same way; one launch a run as PR 19 timed it
+    ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens, scale),
+                 batch=DA_BATCH)
+    one_call_ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens, scale))
     plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens,
                                                          scale),
                        reps=3, warmup=1)
     mixed = da_lengths(gen, p, b, s, "mixed")
-    mixed_ms = cuda_ms(lambda: da.decode_attention(q, k, v, mixed, scale))
+    mixed_ms = cuda_ms(lambda: da.decode_attention(q, k, v, mixed, scale),
+                       batch=DA_BATCH)
     # SDPA over the unsharded cache: (B, Hkv, S, D), the query (B, Hq, 1, D)
     hkv, d = KV_HKV, KV_DH
     ks = k.permute(1, 3, 0, 2, 4).reshape(b, hkv, p * s, d)
@@ -1616,7 +1630,17 @@ def check_decode_attention(da, gen, report):
         return torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True)
 
-    library_ms = cuda_ms(sdpa)
+    library_ms = cuda_ms(sdpa, batch=DA_BATCH)
+    # the split policy: the kernel at other coverings of the card
+    waves, default = {}, da._WAVES
+    for w in sorted({1, 2, 4, 8, default}):
+        da._WAVES = w
+        try:
+            waves[w] = cuda_ms(lambda: da.decode_attention(q, k, v, lens,
+                                                           scale),
+                               batch=DA_BATCH)
+        finally:
+            da._WAVES = default
     o, m, l = da.decode_attention(q, k, v, lens, scale)
     merged = (o * torch.exp(m - m.amax(0))[..., None]).sum(0) / (
         l * torch.exp(m - m.amax(0))).sum(0)[..., None]
@@ -1627,21 +1651,36 @@ def check_decode_attention(da, gen, report):
              + (o.numel() + m.numel() + l.numel()) * 4)
     flops = 4 * KV_HQ * d * rows
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
     report(f"decode_attention {list(shape)} bf16, every row valid: {ms:.3f} "
-           f"ms (ragged lengths {mixed_ms:.3f}); plain {plain_ms:.3f} ms; "
-           f"SDPA over the unsharded cache {library_ms:.3f} ms (merged "
+           f"ms ({DA_BATCH} launches a timed run; one a run {one_call_ms:.3f}"
+           f"); ragged lengths {mixed_ms:.3f}, reading "
+           f"{int(mixed.sum()) / rows:.3f} of the rows; plain {plain_ms:.3f}"
+           f" ms; SDPA over the unsharded cache {library_ms:.3f} ms (merged "
            f"output only; max |SDPA - merged partials| {sdpa_err:.3e}); bound "
-           f"{max(t_bytes, t_ops) * 1e3:.3f} ms (bytes {moved}: "
-           f"{t_bytes * 1e3:.3f}, flops {flops}: {t_ops * 1e3:.3f})")
+           f"{bound_ms:.3f} ms (bytes {moved}: {t_bytes * 1e3:.3f}, flops "
+           f"{flops}: {t_ops * 1e3:.3f})")
+    lib = da._build.lib("decode_attention.cu")
+    g = KV_HQ // hkv
+    splits, chunk = da._split_plan(p * b, hkv, g, s, d, 1,
+                                   da._slots(q.device, d, g, 1), lib)
+    report(f"decode_attention {list(shape)} bf16: {100 * bound_ms / ms:.1f}% "
+           f"of its bound, {moved / ms / 1e6:.1f} GB/s; kernel / SDPA "
+           f"{ms / library_ms:.3f} (SDPA {library_ms:.3f} ms, same run); "
+           f"{lib.da_blocks_per_sm(d, g, 1)} blocks an SM of "
+           f"{lib.da_smem_bytes(d, g, 1)} bytes of shared memory, {splits} "
+           f"splits of {chunk} rows (stages of {lib.da_stage_rows(d, g, 1)}); "
+           f"ms at {{waves: ms}} coverings of the card {waves}")
     del q, k, v, ks, vs, o, m, l, merged
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:88",
             "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "shape": list(shape),
-            "ms_ragged": mixed_ms, "sdpa_max_abs_diff": sdpa_err}
+            "ms_ragged": mixed_ms, "sdpa_max_abs_diff": sdpa_err,
+            "ms_by_waves": waves, "ms_one_launch_a_run": one_call_ms}
 
 
 def plain_block_step(ref, x, ws, k_full, v_full, pos):
@@ -1778,6 +1817,26 @@ def trace_call(name, fn, report, reps=5):
                        for d, k, c in rows[:8]))
 
 
+def ptxas_lines(log):
+    """The register and spill lines of `nvcc -Xptxas=-v`, each after the
+    (demangled, where `c++filt` exists) kernel it reports on."""
+    names, out, entry = [], [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            names.append(entry)
+        elif "registers" in line or "spill" in line:
+            out.append((entry, line.split(":", 1)[-1].strip()))
+    plain = dict(zip(names, names))
+    if names and shutil.which("c++filt"):
+        demangled = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True, check=True,
+                                   timeout=60).stdout.splitlines()
+        plain.update(zip(names, (d.replace("(anonymous namespace)::", "")
+                                 .split("(")[0] for d in demangled)))
+    return [f"{plain.get(entry, '?')}: {text}" for entry, text in out]
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -1832,9 +1891,8 @@ def main(argv=None) -> int:
     _build.load_all()
     report(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for src, log in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                report(f"  {src}: {line.strip()}")
+        for line in ptxas_lines(log):
+            report(f"  {src}: {line}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)

@@ -69,9 +69,13 @@ _SIGNATURES = {
         "dfa_error_string": ([_I], ctypes.c_char_p),
     },
     "decode_attention.cu": {
-        "da_partial": ([_P] * 7 + [_LL, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+        "da_partial": ([_P, _LL, _LL, _I] + [_P] * 6
+                       + [_LL, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
         "da_combine": ([_P] * 6 + [_LL, _I, _I, _I, _I, _P], _I),
-        "da_tile_rows": ([_I], _I),
+        "da_blocks_per_sm": ([_I, _I, _I], _I),
+        "da_smem_bytes": ([_I, _I, _I], _I),
+        "da_stage_rows": ([_I, _I, _I], _I),
+        "da_split_rows": ([_I, _I, _I], _I),
         "da_group_chunk": ([], _I),
         "da_error_string": ([_I], ctypes.c_char_p),
     },

@@ -6,20 +6,25 @@ Replaces the Pallas kernel `src/repro/kernels/decode_attention.py:88`
 decode_attention`, which pads G to 8, D to 128 and S to 256 for the TPU's
 matrix unit; this kernel needs no padding. The CUDA kernel is
 `csrc/decode_attention.cu`; its header states the contract and the design
-(split over KV, a tile of K and V rows staged in shared memory in f32, a
-running max and rescale as the TPU kernel keeps, the splits folded in a
-fixed order by a second kernel).
+(split over KV; in each block four warps stream their own stages of K and
+V rows through a ring in shared memory with `cp.async`, each element read
+from shared memory once; bf16 caches at D = 64 or 128 with G <= 4 take the
+tensor cores with q and p split exactly into three bf16 parts, the rest f32
+FMAs; a running max and rescale as the TPU kernel keeps; the warps folded
+in warp order, the splits in split order by a second kernel).
 
 What bounds it on the card: bytes. The function reads each valid K and V
 row once; its 4 * Hq * D flops a row are under one flop a byte for a bf16
 cache.
 
 Contract, per shard p and sequence b (that of `repro_torch.kernels.ref.
-decode_attention`): q (P, B, Hq, D) any float type (the kernel reads it
-as f32); k and v (P, B, S, Hkv, D), both f32 or both bf16; lengths (P, B)
-int32, the shard's valid rows; Hq a multiple of Hkv (any group G >= 1),
-D up to 256. Returns o (P, B, Hq, D) f32 unnormalised, m and l (P, B, Hq)
-f32; an empty (p, b) gets o = 0, m = -1e30, l = 0.
+decode_attention`): q (P, B, Hq, D) any float type (the kernel reads f32
+and bf16 as they are, with any strides over P and B, such as a query
+expanded over the shards; other types are converted to f32 first); k and v
+(P, B, S, Hkv, D), both f32 or both bf16; lengths (P, B) int32, the
+shard's valid rows; Hq a multiple of Hkv (any group G >= 1), D up to 256.
+Returns o (P, B, Hq, D) f32 unnormalised, m and l (P, B, Hq) f32; an empty
+(p, b) gets o = 0, m = -1e30, l = 0.
 
 `decode_attention` launches the kernel and takes CUDA tensors only;
 `decode_attention_plain` is the same function in plain torch, which the
@@ -35,7 +40,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 MAX_DIM = 256                    # the kernel's kMaxDim: its largest D
-_BLOCKS_PER_SM = 8               # the grid covers the card this many times
+_WAVES = 2                       # the grid fills the card's blocks this often
+                                 # (1-2 measured best on the H100: chip_smoke)
 
 
 def _check_args(q, k, v, lengths) -> None:
@@ -66,18 +72,36 @@ def _check_args(q, k, v, lengths) -> None:
 
 
 @functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _slots(device: torch.device, d: int, g: int, bf16: int) -> int:
+    """Blocks of the kernel that takes (d, g, cache type) resident on the
+    whole card at once."""
+    lib = _build.lib("decode_attention.cu")
+    with torch.cuda.device(device):
+        per_sm = lib.da_blocks_per_sm(d, g, bf16)
+    if per_sm <= 0:
+        _build.check(-per_sm, lib.da_error_string, "decode_attention "
+                     "(occupancy)")
+        raise RuntimeError(f"decode_attention: no block of D = {d}, G = {g} "
+                           f"fits on an SM")
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * per_sm
 
 
-def _n_splits(pb: int, hkv: int, g: int, s: int, d: int, sms: int,
-              lib) -> int:
-    """Splits of the rows a (shard, sequence, KV head) gets: enough blocks
-    to cover the card `_BLOCKS_PER_SM` times, at most one tile each."""
+def _split_plan(pb: int, hkv: int, g: int, s: int, d: int, bf16: int,
+                slots: int, lib) -> tuple[int, int]:
+    """(splits, rows a split) of each (shard, sequence, KV head): enough
+    blocks to fill the card's `slots` resident blocks about `_WAVES`
+    times. Where the rows are split at all, a split takes 3/4 of an even
+    share, so that a last split of small blocks, which the grid runs last,
+    fills the final wave (blocks of one size leave SMs idle at the end).
+    A split is a whole number of the kernel's split unit (a round of a
+    block's warps over their stages); none is empty at full length."""
     blocks = pb * hkv * -(-g // lib.da_group_chunk())
-    tiles = -(-s // lib.da_tile_rows(d))
-    want = -(-_BLOCKS_PER_SM * sms // blocks)
-    return max(1, min(want, tiles, 65535))
+    unit = lib.da_split_rows(d, g, bf16)
+    units = max(1, -(-s // unit))
+    want = max(1, min(-(-_WAVES * slots // blocks), units, 65535))
+    per = units if want == 1 else -(-3 * units // (4 * want))
+    return -(-units // per), per * unit
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,20 +124,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o, m, l
     lib = _build.lib("decode_attention.cu")
     chunks = -(-g // lib.da_group_chunk())
-    if hkv * chunks > 65535:
-        raise ValueError(f"Hkv x ceil(G / {lib.da_group_chunk()}) = "
-                         f"{hkv * chunks} is past the grid's 65535")
-    splits = _n_splits(pb, hkv, g, s, d, _sms(dev), lib)
-    qf = q.float().contiguous()
-    k, v, lengths = k.contiguous(), v.contiguous(), lengths.contiguous()
+    if pb * hkv * chunks > 2**31 - 1:
+        raise ValueError(f"P x B x Hkv x ceil(G / {lib.da_group_chunk()}) "
+                         f"= {pb * hkv * chunks} is past the grid's 2^31 - 1")
     bf16 = int(k.dtype == torch.bfloat16)
+    splits, rows = _split_plan(pb, hkv, g, s, d, bf16,
+                               _slots(dev, d, g, bf16), lib)
+    # q is read in place: its type if f32 or bf16, any strides over (P, B)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        q = q.float()
+    if (d > 1 and q.stride(3) != 1) or (hq > 1 and q.stride(2) != d):
+        q = q.contiguous()
+    q_args = (q.data_ptr(), q.stride(0), q.stride(1),
+              int(q.dtype == torch.bfloat16))
+    k, v, lengths = k.contiguous(), v.contiguous(), lengths.contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if splits == 1:   # the split's partials are the shard's
             _build.check(lib.da_partial(
-                qf.data_ptr(), k.data_ptr(), v.data_ptr(),
-                lengths.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-                pb, s, hkv, g, d, 1, float(scale), bf16, stream),
+                *q_args, k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                o.data_ptr(), m.data_ptr(), l.data_ptr(), pb, b, s, hkv, g,
+                d, 1, rows, float(scale), bf16, stream),
                 lib.da_error_string, "decode_attention")
         else:
             o_s = torch.empty((pb, hkv, splits, g, d), dtype=torch.float32,
@@ -122,10 +153,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               device=dev)
             l_s = torch.empty_like(m_s)
             _build.check(lib.da_partial(
-                qf.data_ptr(), k.data_ptr(), v.data_ptr(),
-                lengths.data_ptr(), o_s.data_ptr(), m_s.data_ptr(),
-                l_s.data_ptr(), pb, s, hkv, g, d, splits, float(scale), bf16,
-                stream), lib.da_error_string, "decode_attention")
+                *q_args, k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                o_s.data_ptr(), m_s.data_ptr(), l_s.data_ptr(), pb, b, s,
+                hkv, g, d, splits, rows, float(scale), bf16, stream),
+                lib.da_error_string, "decode_attention")
             _build.check(lib.da_combine(
                 o_s.data_ptr(), m_s.data_ptr(), l_s.data_ptr(), o.data_ptr(),
                 m.data_ptr(), l.data_ptr(), pb, hkv, g, d, splits, stream),

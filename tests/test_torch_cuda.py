@@ -31,6 +31,7 @@ from repro_torch.core import operators as op
 from repro_torch.core.pipeline import _DROP_KEY
 from repro_torch.core import far_kv as tfk
 from repro_torch.kernels import ctr_crypt as tctr
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import dfa_match as tdfa
 from repro_torch.kernels import hash_group as thg
@@ -601,11 +602,16 @@ def test_full_and_distinct_without_device_run_on_the_card(card):
 
 # ------------------------------------------------------------ decode_attention
 # (P, B, S, Hkv, G, D): chip_smoke's smoke shape (granite-3-8b's block over
-# a 16-shard pool of 2048 rows), G = 1, G = 8 at D = 64, D = 256, G past a
-# block's 32 query rows, and D = 20 (a bf16 row of 40 bytes: scalar loads)
+# a 16-shard pool of 2048 rows), G = 1, 2 and 3 (the tensor-core kernel's
+# three instances in bf16, G = 3 with a padding row), G = 8 at D = 64 (f32
+# FMAs), D = 256 (at G = 8, the FMA kernel's largest shared memory in
+# f32), G past a block's 8 query rows, and D = 20 (a bf16 row of 40 bytes:
+# scalar loads)
 DA_SHAPES = [(16, 8, 2048, 8, 4, 128), (2, 3, 300, 2, 1, 64),
+             (2, 3, 300, 2, 2, 128), (2, 2, 100, 2, 3, 64),
              (2, 3, 300, 1, 8, 64), (2, 2, 100, 2, 4, 256),
-             (1, 2, 70, 2, 40, 32), (2, 2, 50, 2, 3, 20)]
+             (2, 2, 100, 1, 8, 256), (1, 2, 70, 2, 40, 32),
+             (2, 2, 50, 2, 3, 20)]
 DA_TOL = dict(rtol=1e-5, atol=1e-5)      # f32 sums in other orders
 # o sums up to 2048 signed terms p v in f32 in another order than cuBLAS:
 # the two differ by up to 7.8e-5 where o is near 0 (on an H100), so o
@@ -634,11 +640,9 @@ def _da_inputs(card, shape, dtype, seed=0):
     return q, k, v, lens.view(p, b).to(torch.int32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", DA_SHAPES)
-def test_decode_attention_kernel_matches_plain(card, shape, dtype):
-    q, k, v, lens = _da_inputs(card, shape, dtype)
-    scale = shape[5] ** -0.5
+def _check_decode_attention(q, k, v, lens, scale):
+    """One launch against the plain version by the DA rules, the empty
+    (p, b) rule and bitwise determinism."""
     before = tda.decode_attention.launches
     o, m, l = tda.decode_attention(q, k, v, lens, scale)
     eo, em, el = tda.decode_attention_plain(q, k, v, lens, scale)
@@ -651,9 +655,61 @@ def test_decode_attention_kernel_matches_plain(card, shape, dtype):
     empty = (lens == 0)[..., None].expand_as(m)
     assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
     assert bool((o[empty] == 0).all())
-    # deterministic: the splits fold in a fixed order
+    # deterministic: the warps and the splits fold in a fixed order
     o2, m2, l2 = tda.decode_attention(q, k, v, lens, scale)
     assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DA_SHAPES)
+def test_decode_attention_kernel_matches_plain(card, shape, dtype):
+    q, k, v, lens = _da_inputs(card, shape, dtype)
+    _check_decode_attention(q, k, v, lens, shape[5] ** -0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_stage_and_split_boundaries(card, dtype):
+    """Lengths one below, at and one past a stage of the streaming kernel
+    and a split of the grid, and S - 1, S and 0."""
+    p, b, s, hkv, g, d = 1, 9, 256, 2, 4, 128
+    bf16 = int(dtype == torch.bfloat16)
+    lib = _build.lib("decode_attention.cu")
+    rows = lib.da_stage_rows(d, g, bf16)
+    splits, chunk = tda._split_plan(p * b, hkv, g, s, d, bf16,
+                                    tda._slots(card, d, g, bf16), lib)
+    assert splits > 1 and chunk % rows == 0 and chunk + 1 < s - 1
+    q, k, v, _ = _da_inputs(card, (p, b, s, hkv, g, d), dtype, seed=1)
+    lens = torch.tensor([[rows - 1, rows, rows + 1, chunk - 1, chunk,
+                          chunk + 1, s - 1, s, 0]], dtype=torch.int32,
+                        device=card)
+    _check_decode_attention(q, k, v, lens, d ** -0.5)
+
+
+@pytest.mark.parametrize("s", [1, 5])
+def test_decode_attention_shorter_than_a_stage(card, s):
+    """A single row, and S below one stage's rows."""
+    q, k, v, lens = _da_inputs(card, (2, 4, s, 2, 4, 128), torch.bfloat16,
+                               seed=2)
+    assert s < _build.lib("decode_attention.cu").da_stage_rows(128, 4, 1)
+    _check_decode_attention(q, k, v, lens, 128 ** -0.5)
+
+
+def test_decode_attention_reads_an_expanded_bf16_query(card):
+    """The far path's query: bf16, replicated over the shards with stride
+    0, read in place (no copy) and equal to the same query made whole."""
+    p, b, s, hkv, g, d = 4, 3, 200, 2, 4, 128
+    _, k, v, lens = _da_inputs(card, (p, b, s, hkv, g, d), torch.bfloat16,
+                               seed=3)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    q0 = torch.randn((b, hkv * g, d), generator=gen,
+                     device=card).to(torch.bfloat16)
+    q = q0.expand(p, *q0.shape)
+    assert q.stride(0) == 0
+    _check_decode_attention(q, k, v, lens, d ** -0.5)
+    whole = tda.decode_attention(q.contiguous(), k, v, lens, d ** -0.5)
+    for a, b_ in zip(tda.decode_attention(q, k, v, lens, d ** -0.5), whole):
+        assert torch.equal(a, b_)
 
 
 def test_decode_attention_refuses_what_it_does_not_take(card):

@@ -142,6 +142,41 @@ def test_kernel_wrapper_checks_its_arguments():
         tda.decode_attention_plain(q, k, v, lens.long(), 1.0)
 
 
+class _StubLib:
+    """The split unit and group chunk `decode_attention.cu` exports: a
+    round of 4 warps over stages of 16 rows (bf16, D = 128)."""
+
+    @staticmethod
+    def da_group_chunk():
+        return 8
+
+    @staticmethod
+    def da_split_rows(d, g, bf16):
+        return 64
+
+
+# (P x B, Hkv, G, S, resident blocks) -> (splits, rows a split): the far
+# path's 16 x 8 shards at 3 blocks on each of 132 SMs (one split), naive's
+# one shard of 32768 rows and local's head-sharded cache (one KV head, G =
+# 2), split into 3/4 shares and a smaller last split, G past the block's 8
+# query rows, S under one unit and S = 0
+SPLIT_PLANS = [((128, 8, 4, 2048, 396), (1, 2048)),
+               ((8, 8, 4, 32768, 396), (18, 1920)),
+               ((128, 1, 2, 32768, 396), (10, 3520)),
+               ((2, 2, 40, 300, 396), (5, 64)),
+               ((4, 2, 4, 5, 396), (1, 64)),
+               ((4, 2, 4, 0, 396), (1, 64))]
+
+
+@pytest.mark.parametrize("args,plan", SPLIT_PLANS)
+def test_split_plan_fills_the_card_without_empty_splits(args, plan):
+    pb, hkv, g, s, slots = args
+    splits, rows = tda._split_plan(pb, hkv, g, s, 128, 1, slots, _StubLib)
+    assert (splits, rows) == plan
+    assert rows % 64 == 0 and splits * rows >= s
+    assert (splits - 1) * rows < max(s, 1)        # no split starts past S
+
+
 # ----------------------------------------------------- far_kv, piece by piece
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_partial_attention_matches_jax_far_kv(dtype):
