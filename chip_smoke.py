@@ -93,8 +93,11 @@ Phases (any failure exits non-zero; nothing is caught):
    `scaled_dot_product_attention(enable_gqa=True)` with the length mask
    over the unsharded cache, with its bound, its share of the bound, its
    GB/s, its ratio to SDPA's time of the same run (printed, not asserted),
-   the blocks an SM and the split plan, and its time at other coverings of
-   the card by the grid (the split policy's `_WAVES`);
+   each timed both over 20 launches a run and one launch a run, the blocks
+   an SM and the split plan; then the same source built with its
+   tensor-core kernel compiled out (-DDA_FMA_ONLY), checked, and its FMA
+   kernel timed against the tensor-core kernel at the far-KV path's shapes
+   (far full and ragged, naive, local);
 11. the far-KV path: granite-3-8b's attention block at full width
    (d_model 4096, bf16 weights and cache, random from --seed), B=8
    sequences of ragged lengths 1..32752 over a pool of 16 shards x 2048
@@ -114,6 +117,7 @@ Exits 2 without a result where torch sees no CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -1607,17 +1611,7 @@ def check_decode_attention(da, gen, report):
     q, k, v, lens = da_inputs(gen, shape, torch.bfloat16, "full")
     q = q[0].to(torch.bfloat16).expand(p, *q.shape[1:])
     scale = KV_DH ** -0.5
-    # 20 launches back to back a timed run (the wrapper's Python hides behind
-    # the card), SDPA the same way; one launch a run as PR 19 timed it
-    ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens, scale),
-                 batch=DA_BATCH)
-    one_call_ms = cuda_ms(lambda: da.decode_attention(q, k, v, lens, scale))
-    plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens,
-                                                         scale),
-                       reps=3, warmup=1)
     mixed = da_lengths(gen, p, b, s, "mixed")
-    mixed_ms = cuda_ms(lambda: da.decode_attention(q, k, v, mixed, scale),
-                       batch=DA_BATCH)
     # SDPA over the unsharded cache: (B, Hkv, S, D), the query (B, Hq, 1, D)
     hkv, d = KV_HKV, KV_DH
     ks = k.permute(1, 3, 0, 2, 4).reshape(b, hkv, p * s, d)
@@ -1630,17 +1624,19 @@ def check_decode_attention(da, gen, report):
         return torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True)
 
-    library_ms = cuda_ms(sdpa, batch=DA_BATCH)
-    # the split policy: the kernel at other coverings of the card
-    waves, default = {}, da._WAVES
-    for w in sorted({1, 2, 4, 8, default}):
-        da._WAVES = w
-        try:
-            waves[w] = cuda_ms(lambda: da.decode_attention(q, k, v, lens,
-                                                           scale),
-                               batch=DA_BATCH)
-        finally:
-            da._WAVES = default
+    def kernel(lengths):
+        return lambda: da.decode_attention(q, k, v, lengths, scale)
+
+    # the kernel and SDPA timed both ways in this run: DA_BATCH launches
+    # back to back a timed run (the wrapper's Python hides behind the
+    # card), and one launch a run (the host's launch time counts too)
+    ms, library_ms, mixed_ms = (cuda_ms(f, batch=DA_BATCH) for f in (
+        kernel(lens), sdpa, kernel(mixed)))
+    one_ms, one_library_ms, one_mixed_ms = (cuda_ms(f) for f in (
+        kernel(lens), sdpa, kernel(mixed)))
+    plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens,
+                                                         scale),
+                       reps=3, warmup=1)
     o, m, l = da.decode_attention(q, k, v, lens, scale)
     merged = (o * torch.exp(m - m.amax(0))[..., None]).sum(0) / (
         l * torch.exp(m - m.amax(0))).sum(0)[..., None]
@@ -1652,26 +1648,28 @@ def check_decode_attention(da, gen, report):
     flops = 4 * KV_HQ * d * rows
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
+    del o, m, l, merged, ks, vs
     report(f"decode_attention {list(shape)} bf16, every row valid: {ms:.3f} "
-           f"ms ({DA_BATCH} launches a timed run; one a run {one_call_ms:.3f}"
-           f"); ragged lengths {mixed_ms:.3f}, reading "
-           f"{int(mixed.sum()) / rows:.3f} of the rows; plain {plain_ms:.3f}"
-           f" ms; SDPA over the unsharded cache {library_ms:.3f} ms (merged "
-           f"output only; max |SDPA - merged partials| {sdpa_err:.3e}); bound "
-           f"{bound_ms:.3f} ms (bytes {moved}: {t_bytes * 1e3:.3f}, flops "
-           f"{flops}: {t_ops * 1e3:.3f})")
+           f"ms {DA_BATCH} launches a timed run, {one_ms:.3f} one a run; "
+           f"ragged lengths, reading {int(mixed.sum()) / rows:.3f} of the "
+           f"rows: {mixed_ms:.3f} / {one_mixed_ms:.3f}; plain {plain_ms:.3f}"
+           f" ms; SDPA over the unsharded cache (merged output only; max "
+           f"|SDPA - merged partials| {sdpa_err:.3e}) {library_ms:.3f} / "
+           f"{one_library_ms:.3f}; bound {bound_ms:.3f} ms (bytes {moved}: "
+           f"{t_bytes * 1e3:.3f}, flops {flops}: {t_ops * 1e3:.3f})")
     lib = da._build.lib("decode_attention.cu")
     g = KV_HQ // hkv
     splits, chunk = da._split_plan(p * b, hkv, g, s, d, 1,
                                    da._slots(q.device, d, g, 1), lib)
     report(f"decode_attention {list(shape)} bf16: {100 * bound_ms / ms:.1f}% "
-           f"of its bound, {moved / ms / 1e6:.1f} GB/s; kernel / SDPA "
-           f"{ms / library_ms:.3f} (SDPA {library_ms:.3f} ms, same run); "
+           f"of its bound, {moved / ms / 1e6:.1f} GB/s; kernel / SDPA, same "
+           f"run: {ms / library_ms:.3f} at {DA_BATCH} launches a timed run, "
+           f"{one_ms / one_library_ms:.3f} at one; "
            f"{lib.da_blocks_per_sm(d, g, 1)} blocks an SM of "
            f"{lib.da_smem_bytes(d, g, 1)} bytes of shared memory, {splits} "
-           f"splits of {chunk} rows (stages of {lib.da_stage_rows(d, g, 1)}); "
-           f"ms at {{waves: ms}} coverings of the card {waves}")
-    del q, k, v, ks, vs, o, m, l, merged
+           f"splits of {chunk} rows (stages of {lib.da_stage_rows(d, g, 1)})")
+    fma = time_fma_kernel(da, gen, q, k, v, lens, mixed, scale, report)
+    del q, k, v
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:88",
@@ -1680,7 +1678,81 @@ def check_decode_attention(da, gen, report):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "shape": list(shape),
             "ms_ragged": mixed_ms, "sdpa_max_abs_diff": sdpa_err,
-            "ms_by_waves": waves, "ms_one_launch_a_run": one_call_ms}
+            "ms_one_launch_a_run": one_ms,
+            "library_ms_one_launch_a_run": one_library_ms,
+            "ms_ragged_one_launch_a_run": one_mixed_ms,
+            "fma_kernel_ms": fma}
+
+
+def fma_only_lib(da):
+    """decode_attention.cu built with -DDA_FMA_ONLY, which compiles its
+    tensor-core path out: the f32 FMA kernel takes every 16-byte row."""
+    bld = da._build
+    out = bld.BUILD_DIR / (bld._target("decode_attention.cu").stem
+                           + "-fma-only.so")
+    subprocess.run([bld._nvcc(), *bld.NVCC_FLAGS, "-DDA_FMA_ONLY", "-o",
+                    str(out), str(bld.CSRC / "decode_attention.cu")],
+                   check=True, capture_output=True, text=True, timeout=900)
+    return bld._load("decode_attention.cu", out)
+
+
+@contextlib.contextmanager
+def da_library(da, lib):
+    """decode_attention's wrapper launches from `lib` inside the block."""
+    libs, name = da._build._LIBS, "decode_attention.cu"
+    saved = libs[name]
+    libs[name] = lib
+    da._slots.cache_clear()
+    try:
+        yield
+    finally:
+        libs[name] = saved
+        da._slots.cache_clear()
+
+
+def time_fma_kernel(da, gen, q, k, v, lens, mixed, scale, report):
+    """The tensor-core kernel against the FMA kernel where the tensor cores
+    run: the FMA build checked at the path's shape, then both timed at the
+    far-KV path's shapes (far: the sharded pool, full and ragged; naive:
+    one shard of every row; local: each KV head on two shards), DA_BATCH
+    launches a timed run, in the order tensor, FMA, FMA, tensor. Returns
+    {shape: [tensor ms, FMA ms]}, each the mean of its two runs."""
+    fma = fma_only_lib(da)
+    with da_library(da, fma):
+        check_da_case(da, q, k, v, lens, scale,
+                      f"FMA build, bf16 full {list(k.shape)}", report)
+    p, b, s, hkv, d = k.shape
+    n = p * s
+    kn = torch.randn((1, b, n, hkv, d), generator=gen, device="cuda").to(
+        k.dtype)
+    ql = torch.randn((p, b, 2, d), generator=gen, device="cuda").to(q.dtype)
+    kl = torch.randn((p, b, n, 1, d), generator=gen, device="cuda").to(
+        k.dtype)
+    every = lens.sum(0, keepdim=True, dtype=torch.int32)   # n a sequence
+    cases = {"far full": (q, k, v, lens), "far ragged": (q, k, v, mixed),
+             "naive": (q[:1], kn, kn, every),
+             "local": (ql, kl, kl, every.expand(p, -1))}
+    tensor = da._build.lib("decode_attention.cu")
+
+    def timed(args):
+        return cuda_ms(lambda: da.decode_attention(*args, scale),
+                       batch=DA_BATCH)
+
+    out = {}
+    for name, args in cases.items():
+        t = {"tensor": [], "fma": []}
+        for which in ("tensor", "fma", "fma", "tensor"):
+            with da_library(da, fma if which == "fma" else tensor):
+                t[which].append(timed(args))
+        out[name] = [statistics.mean(t["tensor"]), statistics.mean(t["fma"])]
+    report("decode_attention, tensor-core kernel vs FMA kernel (the same "
+           "source built -DDA_FMA_ONLY), ms at " + "; ".join(
+               f"{name} [P, B, S, Hkv] {list(args[1].shape[:4])} G "
+               f"{args[0].shape[2] // args[1].shape[3]}: {out[name][0]:.3f} "
+               f"vs {out[name][1]:.3f} ({out[name][1] / out[name][0]:.2f}x)"
+               for name, args in cases.items()))
+    del kn, ql, kl, cases
+    return out
 
 
 def plain_block_step(ref, x, ws, k_full, v_full, pos):

@@ -52,7 +52,10 @@
 //     (f32 caches, other D or G) take f32 FMAs: in the scores, lpr lanes
 //     share a row and read each K chunk once for all query rows, q
 //     broadcast; in P.V a lane owns a 16-byte chunk of the row for all
-//     query rows, p broadcast (~200 wavefronts a 16-row bf16 stage);
+//     query rows, p broadcast (~200 wavefronts a 16-row bf16 stage). Where
+//     both could run, the tensor-core kernel is the faster at every far-KV
+//     shape: chip_smoke times the FMA kernel in its place, from a build
+//     with -DDA_FMA_ONLY;
 //   * the softmax per warp: a stage's max, m_new, alpha = exp(m - m_new),
 //     p = exp(s - m_new), the running o in registers rescaled; l summed
 //     once at the end.
@@ -478,6 +481,9 @@ da_stream_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
 constexpr int kMmaRows = 16;   // rows a stage
 
 bool mma_takes(int D, int G, int bf16) {
+#ifdef DA_FMA_ONLY   // a build that times the FMA kernel in this one's place
+  return false;
+#endif
   return bf16 && (D == 64 || D == 128) && G <= 4;
 }
 

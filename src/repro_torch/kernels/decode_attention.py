@@ -41,7 +41,7 @@ from repro_torch.kernels import _build, ref
 
 MAX_DIM = 256                    # the kernel's kMaxDim: its largest D
 _WAVES = 2                       # the grid fills the card's blocks this often
-                                 # (1-2 measured best on the H100: chip_smoke)
+                                 # (1 and 2 measured best on the H100)
 
 
 def _check_args(q, k, v, lengths) -> None:
