@@ -13,7 +13,8 @@
 //     rows r < lengths[pb]; s = scale * <q_j, k_r> in f32;
 //   * o[pb, j] = sum_r exp(s_r - m) v_r (unnormalised), m = max_r s_r,
 //     l = sum_r exp(s_r - m), all in f32; for an empty (pb, j): o = 0,
-//     m = -1e30, l = 0.
+//     m = -1e30, l = 0; where some s_r is +inf or NaN, m = 0 and p =
+//     exp(s_r), as the reference's `msafe` takes it.
 // The TPU kernel pads G to 8 and D to 128 for its matrix unit and walks the
 // S blocks in order, carrying (o, m, l) in its output blocks. Here no
 // padding is needed, and blocks run in no order, so the rows are split.
@@ -176,6 +177,39 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The running softmax and non-finite scores. fmaxf drops NaN, and exp(inf
+// - inf) is NaN, so a (pb, query row) that meets a +inf or NaN score takes
+// 0 as its base from then on (the reference's msafe: m = 0, p = exp(s)).
+// Its running m then holds +inf as a mark, which no finite max reaches;
+// the folds of warps and splits rebase every partial of a marked row to 0
+// and write m = 0. The common path pays a select a score and a compare a
+// stage.
+__device__ __forceinline__ float mark() { return __int_as_float(0x7F800000); }
+__device__ __forceinline__ bool marked(float m) { return m == mark(); }
+// the base a running m (or a partial's m) stands for
+__device__ __forceinline__ float base_of(float m) {
+  return marked(m) ? 0.f : m;
+}
+// a score as the running max reads it: NaN counts as +inf
+__device__ __forceinline__ float max_key(float s) {
+  return s != s ? mark() : s;
+}
+// one stage of the running softmax: m the running max (or the mark), mx
+// the stage's largest max_key(score). Returns the stage's base (p = exp(s
+// - base)); alpha rescales the o and l kept so far.
+__device__ __forceinline__ float step_base(float& m, float mx, float& alpha) {
+  const bool flag = marked(m) || marked(mx);
+  const float base = flag ? 0.f : fmaxf(m, mx);
+  alpha = expf(base_of(m) - base);
+  m = flag ? mark() : base;
+  return base;
+}
+// m as the kernel writes it: a split's partial keeps the mark for the
+// combine; the shard's result (one split) reads 0 there
+__device__ __forceinline__ float m_written(float m, int n_split) {
+  return n_split == 1 && marked(m) ? 0.f : m;
+}
+
 __device__ __forceinline__ float q_elem(const void* q, int q_bf16, size_t i) {
   return q_bf16 ? __uint_as_float(
                       (uint32_t)(reinterpret_cast<const unsigned short*>(q)[i])
@@ -216,14 +250,14 @@ __device__ __forceinline__ void fold_warps(const unsigned char* rings,
                                            float* l_out, size_t slot) {
   for (int i = threadIdx.x; i < gc * D; i += kWarps * 32) {
     const int g = i / D;
-    float mx = kNegInf;
+    float mx = kNegInf;   // the mark, where any warp has it
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w * GC + g]);
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
       acc += reinterpret_cast<const float*>(rings + w * ring_bytes)[i] *
-             expf(s_m[w * GC + g] - mx);
+             expf(base_of(s_m[w * GC + g]) - base_of(mx));
     o_out[slot * D + i] = acc;
   }
   for (int g = threadIdx.x; g < gc; g += kWarps * 32) {
@@ -233,8 +267,8 @@ __device__ __forceinline__ void fold_warps(const unsigned char* rings,
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      acc += s_l[w * GC + g] * expf(s_m[w * GC + g] - mx);
-    m_out[slot + g] = mx;
+      acc += s_l[w * GC + g] * expf(base_of(s_m[w * GC + g]) - base_of(mx));
+    m_out[slot + g] = m_written(mx, gridDim.y);
     l_out[slot + g] = acc;
   }
 }
@@ -373,13 +407,11 @@ da_stream_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
       for (int off = lpr >> 1; off > 0; off >>= 1)
         s += __shfl_xor_sync(kFull, s, off);
       s = row < nv ? s * scale : __int_as_float(0xFF800000);   // -inf
-      float mx = s;
+      float mx = max_key(s);
       for (int off = lpr; off < 32; off <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_new = fmaxf(m[g], mx);
-      alpha[g] = expf(m[g] - m_new);
-      m[g] = m_new;
-      const float p = expf(s - m_new);          // 0 past the length
+      const float base = step_base(m[g], mx, alpha[g]);
+      const float p = expf(s - base);           // 0 past the length
       lsum[g] = lsum[g] * alpha[g] + (part == 0 ? p : 0.f);
       if (part == 0) w_p[row * GC + g] = p;
     }
@@ -477,7 +509,14 @@ da_stream_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
 // exactly), stacked as rows s * GC + g of a 16-row tile, so that one
 // m16n8k16 product covers all three. A product of a part and a bf16 K or V
 // element is exact in f32 and the sums are f32: the arithmetic is that of
-// f32 over the stored values, in another order.
+// f32 over the stored values, in another order. Where part 0's sum is not
+// finite (an infinite K or V element, an infinite or NaN p), that sum is
+// taken alone: its infinities carry the reference's signs, and a zero
+// part of the others times an infinity would be NaN (part_sum). One
+// corner stays apart from the reference (ROADMAP.md queue 3): an f32 q
+// element or a p below bf16's least subnormal (2^-133) splits into three
+// zero parts, so against an infinite K or V element it gives NaN where
+// the reference's f32 product gives an infinity.
 constexpr int kMmaRows = 16;   // rows a stage
 
 bool mma_takes(int D, int G, int bf16) {
@@ -537,6 +576,12 @@ __device__ __forceinline__ void split3(float x, __nv_bfloat16* part) {
   const float r = x - __bfloat162float(part[0]);
   part[1] = __float2bfloat16_rn(r);
   part[2] = __float2bfloat16_rn(r - __bfloat162float(part[1]));
+}
+
+// the three parts' sum, part 0 alone where it is not finite
+__device__ __forceinline__ float part_sum(float p0, float p1, float p2) {
+  return (__float_as_uint(p0) & 0x7F800000u) == 0x7F800000u ? p0
+                                                             : (p0 + p1) + p2;
 }
 
 // K, V and the stacked q as rows of C 16-byte chunks, chunk c of row r at
@@ -707,21 +752,21 @@ da_mma_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
         const float lo =
             GC == 4 ? below : __shfl_sync(kFull, hi, (lane + 8 * GC) & 31);
         const float sum =
-            __shfl_sync(kFull, (hi + mid) + lo, (gid % GC) * 4 + tig);
+            __shfl_sync(kFull, part_sum(hi, mid, lo), (gid % GC) * 4 + tig);
         x[nt * 2 + e] = nt * 8 + 2 * tig + e < nv
                             ? sum * scale : __int_as_float(0xFF800000);
       }
-    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+    float mx = fmaxf(fmaxf(max_key(x[0]), max_key(x[1])),
+                     fmaxf(max_key(x[2]), max_key(x[3])));
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    m = m_new;
+    float alpha;
+    const float base = step_base(m, mx, alpha);
     float psum = 0.f;
     __nv_bfloat16 part[4][3];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float pe = expf(x[e] - m);      // 0 past the length
+      const float pe = expf(x[e] - base);   // 0 past the length
       psum += pe;
       split3(pe, part[e]);
     }
@@ -777,7 +822,7 @@ da_mma_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
   }
   __syncwarp();
   for (int i = lane; i < GC * D; i += 32)
-    w_o[i] = (w_o[i] + w_o[GC * D + i]) + w_o[2 * GC * D + i];
+    w_o[i] = part_sum(w_o[i], w_o[GC * D + i], w_o[2 * GC * D + i]);
   lsum += __shfl_xor_sync(kFull, lsum, 1);
   lsum += __shfl_xor_sync(kFull, lsum, 2);
   if (gid < GC && tig == 0) {
@@ -920,22 +965,21 @@ da_staging_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
     for (int g = warp; g < gc; g += kThreads / 32) {
       float* prow = s_p + g * T_;
       float mx = kNegInf;
-      for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, prow[t]);
+      for (int t = lane; t < nt; t += 32) mx = fmaxf(mx, max_key(prow[t]));
       mx = warp_max(mx);
-      const float m_old = s_m[g];
-      const float m_new = fmaxf(m_old, mx);
+      float m_run = s_m[g], a;
+      const float base = step_base(m_run, mx, a);
       float sum = 0.f;
       for (int t = lane; t < nt; t += 32) {
-        const float p = expf(prow[t] - m_new);
+        const float p = expf(prow[t] - base);
         prow[t] = p;
         sum += p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
-        const float a = expf(m_old - m_new);
         s_a[g] = a;
         s_l[g] = s_l[g] * a + sum;
-        s_m[g] = m_new;
+        s_m[g] = m_run;
       }
     }
     __syncthreads();
@@ -953,7 +997,7 @@ da_staging_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
   const size_t slot = (((size_t)pb * Hkv + h) * gridDim.y + split) * G + g0;
   for (int i = tid; i < gc * D; i += kThreads) o_out[slot * D + i] = s_o[i];
   for (int i = tid; i < gc; i += kThreads) {
-    m_out[slot + i] = s_m[i];
+    m_out[slot + i] = m_written(s_m[i], gridDim.y);
     l_out[slot + i] = s_l[i];
   }
 }
@@ -969,13 +1013,14 @@ __global__ void da_combine_kernel(const float* __restrict__ o_s,
   const size_t pbh = row / G;
   const int g = (int)(row - pbh * G);
   const size_t base = pbh * n_split * G + g;
-  float mx = kNegInf;
+  float mx = kNegInf;   // the mark, where any split has it: base 0
   for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, m_s[base + (size_t)s * G]);
+  mx = base_of(mx);
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float acc = 0.f;
     for (int s = 0; s < n_split; ++s) {
       const size_t slot = base + (size_t)s * G;
-      acc += o_s[slot * D + d] * expf(m_s[slot] - mx);
+      acc += o_s[slot * D + d] * expf(base_of(m_s[slot]) - mx);
     }
     o[row * D + d] = acc;
   }
@@ -983,7 +1028,7 @@ __global__ void da_combine_kernel(const float* __restrict__ o_s,
     float acc = 0.f;
     for (int s = 0; s < n_split; ++s) {
       const size_t slot = base + (size_t)s * G;
-      acc += l_s[slot] * expf(m_s[slot] - mx);
+      acc += l_s[slot] * expf(base_of(m_s[slot]) - mx);
     }
     m[row] = mx;
     l[row] = acc;

@@ -24,7 +24,11 @@ expanded over the shards; other types are converted to f32 first); k and v
 (P, B, S, Hkv, D), both f32 or both bf16; lengths (P, B) int32, the
 shard's valid rows; Hq a multiple of Hkv (any group G >= 1), D up to 256.
 Returns o (P, B, Hq, D) f32 unnormalised, m and l (P, B, Hq) f32; an empty
-(p, b) gets o = 0, m = -1e30, l = 0.
+(p, b) gets o = 0, m = -1e30, l = 0; a query row whose largest score is
++inf or NaN takes 0 as its softmax base (m = 0, p = exp(s)), as ref does.
+Rows at or past the length are never read: a non-finite V row there does
+not reach o, where the plain version multiplies p = 0 into it (ROADMAP.md
+queue 3).
 
 `decode_attention` launches the kernel and takes CUDA tensors only;
 `decode_attention_plain` is the same function in plain torch, which the

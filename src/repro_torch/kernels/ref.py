@@ -379,7 +379,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     but for one deliberate change: a (b, head) with no valid row gets m =
     NEG_INF (-1e30), as the Pallas kernel and `far_kv.partial_attention`
     give it, not 0, so that merging it beside a shard of very negative
-    scores does not underflow (ROADMAP.md queue 3)."""
+    scores does not underflow (ROADMAP.md queue 3). A (b, head) whose
+    largest score is +inf or NaN takes 0 as its base, p = exp(s), and
+    returns m = 0, as the reference's `msafe` does."""
     *lead, hq, d = q.shape
     s, hkv = k.shape[-3], k.shape[-2]
     g = hq // hkv
@@ -393,7 +395,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s == 0:
         m = torch.full(scores.shape[:-1], NEG_INF, device=q.device)
     else:
-        m = torch.clamp(scores.amax(dim=-1), min=NEG_INF)
+        m = scores.amax(dim=-1)
+        # a +inf or NaN max takes 0 as its base, as the reference's msafe
+        m = torch.where(torch.isnan(m) | (m == float("inf")), 0.0,
+                        torch.clamp(m, min=NEG_INF))
     p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
     o = torch.einsum("...hgs,...shd->...hgd", p, v.float())
     return (o.reshape(*lead, hq, d), m.reshape(*lead, hq),

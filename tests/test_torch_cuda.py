@@ -660,6 +660,120 @@ def _check_decode_attention(q, k, v, lens, scale):
     assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
 
 
+def _poison(k, v, lens, where):
+    """A non-finite K or V element in every other (p, b) with rows: +inf,
+    -inf and NaN in K and in V by turns, inside the length ("in") or at
+    its last row ("last"); or +inf, -inf and NaN in V at or past it
+    ("past", where rows remain). Returns the (p, b) indices poisoned."""
+    p, b, s, hkv, d = k.shape
+    kinds = [(k, float("inf")), (k, -float("inf")), (k, float("nan")),
+             (v, float("inf")), (v, -float("inf")), (v, float("nan"))]
+    hit = []
+    for j, n in enumerate(lens.view(-1).tolist()):
+        if j % 2 or (n >= s if where == "past" else n == 0):
+            continue
+        t, val = kinds[(j // 2) % 6]
+        if where == "past":
+            t, val, row = v, kinds[(j // 2) % 3][1], n + (j * 7) % (s - n)
+        else:
+            row = n - 1 if where == "last" else (j * 31) % n
+        t[j // b, j % b, row, j % hkv, (j * 5) % d] = val
+        hit.append(j)
+    return hit
+
+
+def _same_places(got, exp, what):
+    """NaN and inf in the same places, inf with the same sign."""
+    assert torch.equal(torch.isnan(got), torch.isnan(exp)), what
+    inf = torch.isinf(exp)
+    assert torch.equal(torch.isinf(got), inf), what
+    assert torch.equal(got[inf], exp[inf]), what
+
+
+# (Hkv, G, D, cache dtype) of each kernel: tensor cores (bf16, D = 128 and
+# 64, G <= 4), FMA (f32 at G = 4, bf16 at G = 8) and staging (bf16 rows of
+# 40 bytes, scalar loads); S = 32 is one split, S = 600 several
+DA_NONFINITE = {"tensor": (2, 4, 128, torch.bfloat16),
+                "tensor_d64": (2, 2, 64, torch.bfloat16),
+                "fma": (2, 4, 128, torch.float32),
+                "fma_g8": (1, 8, 64, torch.bfloat16),
+                "staging": (2, 3, 20, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("where", ["in", "last", "past"])
+@pytest.mark.parametrize("s", [32, 600])
+@pytest.mark.parametrize("kernel", sorted(DA_NONFINITE))
+def test_decode_attention_nonfinite_kv_matches_plain(card, kernel, s,
+                                                     where):
+    """+-inf and NaN in K and V inside the length: the kernel's NaN and inf
+    where the plain version's are (a +inf or NaN score takes base 0, m =
+    0), the rest by the DA rules. Past the length the kernels read no row
+    (the plain version multiplies p = 0 into it, ROADMAP.md queue 3): the
+    kernel equals the plain version over V with those rows zeroed. Two
+    launches bitwise equal."""
+    hkv, g, d, dtype = DA_NONFINITE[kernel]
+    q, k, v, lens = _da_inputs(card, (2, 6, s, hkv, g, d), dtype, seed=s)
+    lens[lens == 0] = s // 2
+    lens[lens == s] = s - 3                   # rows past every length
+    hit = _poison(k, v, lens, where)
+    assert len(hit) >= 2
+    seen = v.clone()
+    if where == "past":
+        pos = torch.arange(s, device=card)
+        seen[pos[None, None, :] >= lens[..., None]] = 0
+    scale = d ** -0.5
+    o, m, l = tda.decode_attention(q, k, v, lens, scale)
+    eo, em, el = tda.decode_attention_plain(q, k, seen, lens, scale)
+    torch.cuda.synchronize()
+    for got, exp, what in ((o, eo, "o"), (l, el, "l"), (m, em, "m")):
+        _same_places(got, exp, what)
+    o_abs = tda.decode_attention_plain(q, k, seen.abs(), lens, scale)[0]
+    fin = torch.isfinite(eo) & torch.isfinite(o_abs)
+    _assert_sums_close(o[fin], eo[fin], o_abs[fin])
+    fin = torch.isfinite(el)
+    torch.testing.assert_close(l[fin], el[fin], **DA_TOL)
+    torch.testing.assert_close(m, em, **DA_TOL)
+    o2, m2, l2 = tda.decode_attention(q, k, v, lens, scale)
+    for a, b_ in ((o, o2), (m, m2), (l, l2)):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+    if where != "past":
+        assert bool((m == 0).any()) and bool(torch.isnan(o).any())
+    else:   # the plain version over the poisoned V: NaN the kernel has not
+        po = tda.decode_attention_plain(q, k, v, lens, scale)[0]
+        assert bool(torch.isnan(po).any()) and bool(torch.isfinite(o).all())
+
+
+def test_decode_attention_tensor_core_corner_is_a_recorded_divergence(card):
+    """The tensor-core kernel splits an f32 q element and a p into three
+    bf16 parts; below bf16's least subnormal (2^-133) all three are 0, so
+    against an infinite K or V element the kernel gives NaN where the
+    plain version's f32 product gives inf (ROADMAP.md queue 3). A bf16 q
+    (the far path's) never has such an element."""
+    d = 128
+    q = torch.zeros((1, 1, 4, d), device=card)
+    q[..., 0] = 1.0
+    q[..., 1] = 1e-41                        # under 2^-133 ~ 9.2e-41
+    k = torch.zeros((1, 1, 3, 1, d), device=card, dtype=torch.bfloat16)
+    v = torch.ones((1, 1, 3, 1, d), device=card, dtype=torch.bfloat16)
+    k[0, 0, 1, 0, 0] = -95.0                 # p = exp(-95) ~ 5.5e-42
+    v[0, 0, 1, 0, 0] = float("inf")
+    lens = torch.tensor([[2]], dtype=torch.int32, device=card)
+    o, _, _ = tda.decode_attention(q, k, v, lens, 1.0)
+    eo, _, _ = tda.decode_attention_plain(q, k, v, lens, 1.0)
+    assert bool(torch.isinf(eo[..., 0]).all())
+    assert bool(torch.isnan(o[..., 0]).all())        # p's corner
+    k[0, 0, 1, 0, 0] = 0.0
+    k[0, 0, 2, 0, 1] = float("inf")
+    lens[:] = 3
+    v[0, 0, 1, 0, 0] = 1.0
+    # q's corner: the plain score is +inf, the kernel's NaN; both take
+    # base 0, but p = exp(NaN) makes the kernel's l NaN where it is inf
+    _, m, l = tda.decode_attention(q, k, v, lens, 1.0)
+    _, em, el = tda.decode_attention_plain(q, k, v, lens, 1.0)
+    assert bool((em == 0).all()) and bool((m == 0).all())
+    assert bool(torch.isinf(el).all()) and bool(torch.isnan(l).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", DA_SHAPES)
 def test_decode_attention_kernel_matches_plain(card, shape, dtype):

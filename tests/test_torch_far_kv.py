@@ -93,6 +93,90 @@ def test_ref_decode_attention_matches_jax_ref(kind, dtype):
     assert (_np(jm)[~full] == 0.0).all()
 
 
+# one K or V element of KV head 0 made non-finite: +inf, -inf or NaN
+NONFINITE = [(t, x) for t in ("k", "v") for x in (np.inf, -np.inf, np.nan)]
+NF_IDS = [f"{t}{n}" for t in ("k", "v") for n in ("+inf", "-inf", "_nan")]
+NF_LENGTHS = np.asarray([4, 6], np.int32)     # b = 0 has rows past it
+# (b, row) of the element: inside the length, at the last valid row, and
+# past the length of sequence 0
+NF_ROWS = {"in": ((0, 1), (1, 1)), "last": ((0, 3), (1, 5)),
+           "past": ((0, 4),)}
+
+
+def _nonfinite_qkv(which, value, where):
+    """B=2, Hq=4, Hkv=2, D=8, S=6 inputs with element d = 3 of KV head 0
+    non-finite at the rows NF_ROWS[where] names."""
+    q, k, v = _qkv(11, b=2, hq=4, hkv=2, d=8, s=6)
+    # query heads 0 and 1 (KV head 0) meet an infinite k_3 with both signs
+    q[:, 0, 3], q[:, 1, 3] = np.abs(q[:, 0, 3]), -np.abs(q[:, 1, 3])
+    t = k if which == "k" else v
+    for b, row in NF_ROWS[where]:
+        t[b, row, 0, 3] = value
+    return q, k, v
+
+
+def _same_nonfinite(got, exp):
+    """NaN in the same places, inf in the same places with the same sign,
+    the finite rest within F32."""
+    got, exp = _np(got), _np(exp)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
+    inf = np.isinf(exp)
+    np.testing.assert_array_equal(np.isinf(got), inf)
+    np.testing.assert_array_equal(got[inf], exp[inf])
+    fin = np.isfinite(exp)
+    np.testing.assert_allclose(got[fin], exp[fin], **F32)
+
+
+@pytest.mark.parametrize("where", sorted(NF_ROWS))
+@pytest.mark.parametrize("which,value", NONFINITE, ids=NF_IDS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_decode_attention_matches_jax_ref_on_nonfinite_kv(
+        which, value, where, dtype):
+    """The port's ref and ops against JAX ref: a +inf or NaN score takes 0
+    as its base (JAX's msafe), p = exp(s), m = 0. Past the length K is
+    masked on both sides; a non-finite V row there meets p = 0 on both
+    sides (0 x inf = NaN)."""
+    q, k, v = _nonfinite_qkv(which, value, where)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    jo, jm, jl = jref.decode_attention(jq, jk, jv, jnp.asarray(NF_LENGTHS))
+    lens = torch.from_numpy(NF_LENGTHS)
+    for to, tm, tl in (tref.decode_attention(tq, tk, tv, lens),
+                       tops.decode_attention(tq, tk, tv, lens)):
+        for got, exp in ((to, jo), (tl, jl), (tm, jm)):
+            _same_nonfinite(got, exp)
+        np.testing.assert_array_equal(_np(tm) == 0.0, np.asarray(jm) == 0.0)
+    if which == "k" and where != "past":
+        # the case this pins: in each sequence a query head of KV head 0
+        # meets a +inf or NaN score (q_3 has both signs), and m is 0
+        assert (_np(tm)[:, :2] == 0.0).any(axis=1).all()
+
+
+def test_past_length_nonfinite_v_is_a_recorded_divergence():
+    """Both references multiply p = 0 into every V row, also rows past the
+    length, so a NaN or inf V row there makes o NaN for its KV head. The
+    CUDA kernels read no row past the length: on the card they give the
+    plain result over V with those rows zeroed (tests/test_torch_cuda.py
+    holds the kernel to that). Pinned here on the plain side."""
+    for value in (np.nan, np.inf, -np.inf):
+        q, k, v = _nonfinite_qkv("v", value, "past")
+        lens = torch.from_numpy(NF_LENGTHS)
+        to, tm, tl = tref.decode_attention(*map(torch.from_numpy, (q, k, v)),
+                                           lens)
+        jo = jref.decode_attention(*map(jnp.asarray, (q, k, v)),
+                                   jnp.asarray(NF_LENGTHS))[0]
+        nan = np.zeros(to.shape, bool)
+        nan[0, :2, 3] = True                  # sequence 0, KV head 0, d = 3
+        np.testing.assert_array_equal(np.isnan(_np(to)), nan)
+        np.testing.assert_array_equal(np.isnan(np.asarray(jo)), nan)
+        v0 = v.copy()
+        v0[0, 4:] = 0.0                       # the rows the kernels skip
+        zo, zm, zl = tref.decode_attention(
+            *map(torch.from_numpy, (q, k, v0)), lens)
+        assert np.isfinite(_np(zo)).all()
+        np.testing.assert_array_equal(_np(zo)[~nan], _np(to)[~nan])
+        assert torch.equal(zm, tm) and torch.equal(zl, tl)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("kind", sorted(LENGTHS))
 def test_ops_decode_attention_matches_the_pallas_kernel(kind, dtype):
@@ -198,6 +282,48 @@ def test_partial_attention_matches_jax_far_kv(dtype):
         np.testing.assert_allclose(_np(tl[i]), _np(jl), **tol)
         np.testing.assert_allclose(_np(tm[i]), _np(jm), **tol)
     assert (_np(tm)[1:, 0] == np.float32(NEG_INF)).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_partial_attention_with_an_infinite_k_row_matches_jax(dtype):
+    """One K row of shard 1 all +inf: its scores are NaN (q has both signs).
+    Both packages give o and l NaN for that sequence's KV head and agree
+    elsewhere; JAX `far_kv.partial_attention` keeps m = NaN there, the
+    port m = 0 as `ref.decode_attention`'s msafe does. The merged step is
+    NaN in the same places."""
+    p, s_loc = 3, 16
+    q, k, v = _qkv(5, b=2, s=s_loc, lead=(p,))
+    q[1:] = q[0]
+    k[1, 0, 3] = np.inf                    # shard 1, sequence 0, row 3
+    glen = np.asarray([40, 40], np.int32)
+    loc = np.clip(glen[None] - np.arange(p)[:, None] * s_loc, 0, s_loc)
+    (_, tq), (_, tk), (_, tv) = (_both(a, dtype) for a in (q, k, v))
+    to, tm, tl = tfk.partial_attention(tq, tk, tv,
+                                       torch.from_numpy(loc.astype(np.int32)),
+                                       scale=D ** -0.5)
+    tol = F32 if dtype == "f32" else BF16_CAST
+    parts = []
+    for i in range(p):
+        (jq, _), (jk, _), (jv, _) = (_both(a[i], dtype) for a in (q, k, v))
+        jo, jm, jl = jfk.partial_attention(jq, jk, jv, jnp.asarray(loc[i]),
+                                           scale=D ** -0.5)
+        parts.append((jo, jm, jl))
+        for got, exp in ((to[i], jo), (tl[i], jl)):
+            got, exp = _np(got), _np(exp)
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
+            fin = np.isfinite(exp)
+            np.testing.assert_allclose(got[fin], exp[fin], **tol)
+        jm = _np(jm)
+        fin = np.isfinite(jm)
+        np.testing.assert_allclose(_np(tm[i])[fin], jm[fin], **tol)
+        assert (_np(tm[i])[~fin] == 0.0).all()
+        assert fin.all() == (i != 1)
+    assert np.isnan(_np(tl[1, 0, :HQ // HKV])).all()
+    merged = _np(tfk.merge_partials(to, tm, tl))
+    jmerged = np.asarray(jref.merge_partials(parts), np.float32)
+    np.testing.assert_array_equal(np.isnan(merged), np.isnan(jmerged))
+    fin = np.isfinite(jmerged)
+    np.testing.assert_allclose(merged[fin], jmerged[fin], **tol)
 
 
 def _underflow_case():
