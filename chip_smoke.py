@@ -18,15 +18,18 @@ Phases (any failure exits non-zero; nothing is caught):
    opcode, OP_SKIP columns, n_valid tails, explicit cipher positions,
    group keys from NaN/inf/+-1e10 words and drop-key rows; group sums
    bitwise on integer values and within 1e-5 of the bucket's sum of |v|
-   on N(0,1) values; two grouping launches bitwise equal; select_project
-   at 33, 64 and 128 columns and the grouping at 64 columns with 20 value
-   columns (past the caps the port had before); the join probe over B=4
+   on N(0,1) values; two grouping launches bitwise equal; the grouping's
+   direct path (no sort) and its sort path against the plain version at
+   1024 and 256 buckets over uniform and Zipf-skewed keys, both timed
+   there and on the drop-key-heavy keys; select_project at 33, 64 and 128
+   columns and the grouping at 64 columns with 20 value columns (past the
+   caps the port had before); the join probe over B=4
    x 2^26 rows of 3 words (probe keys with NaN/inf/+-2^31/halves, build
    values with inf/NaN payloads/-0.0/subnormals) for builds of 512, 64,
    2^16 and 0 keys, widened as the pipeline calls it, bitwise.
    Times each (CUDA events, median of 10 after warm-up) beside its plain
    version, a library yardstick where one exists, and its bound; the
-   grouping's bucket sort is timed on its own;
+   grouping's sort path and its bucket sort are timed on their own;
 4. the rows path: `FViewNode(4 GiB)` holding a 2^25-row x 8-column table
    (1 GiB, 512 pool pages; the 8-column schema of
    benchmarks/bench_selection.py) and an encrypted copy, four connections
@@ -88,8 +91,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and f32 caches, lengths 0, 1, ragged and 2048; G=1, G=8, D=64 and
    D=256; l and m within 1e-5 (m exactly -1e30 where a length is 0), o
    within 1e-5 of its sum of |p v| (f32 sums in another order than
-   cuBLAS's), both measured against an f64 computation too; timed beside
-   the plain version and, as a yardstick that gives only the merged output,
+   cuBLAS's), both measured against an f64 computation too; +-inf and NaN
+   in K and V inside the length and past it (bf16 and f32 caches), held
+   to the plain version over V with the rows past the length zeroed (NaN
+   and inf in the same places, m = 0 where a score is +inf or NaN, two
+   launches bitwise equal); timed beside the plain version and, as a
+   yardstick that gives only the merged output,
    `scaled_dot_product_attention(enable_gqa=True)` with the length mask
    over the unsharded cache, with its bound, its share of the bound, its
    GB/s, its ratio to SDPA's time of the same run (printed, not asserted),
@@ -446,8 +453,10 @@ def same_sums(gs, es, abs_sum, rule, what):
 
 def check_hash_group(hg, ref, gen, b, n, report):
     """group_prep and group_aggregate vs their plain versions at the main
-    path's shapes; times both, the bucket sort, the plain versions and a
-    scatter_reduce yardstick. Returns the two kernels' JSON entries."""
+    path's shapes, group_aggregate's direct path and its sort path both;
+    times both kernels, the sort path, the bucket sort, the plain versions
+    and a scatter_reduce yardstick. Returns the two kernels' JSON
+    entries."""
     t = group_table(gen, b, n)
     n_valid = torch.tensor([n, n - 12345, n // 2 + 7, 0][:b],
                            dtype=torch.int32, device="cuda")
@@ -510,26 +519,90 @@ def check_hash_group(hg, ref, gen, b, n, report):
                    f"equal")
             del exp, abs_sum
         del got
+    lib = hg._build.lib("hash_group.cu")
     skew_ms = cuda_ms(lambda: hg.group_aggregate(keys, data["normal"][0],
                                                  1024))
+    ovf = torch.empty((b, n), dtype=torch.bool, device="cuda")
+    skew_sort_ms = cuda_ms(lambda: hg._sorted(lib, keys, data["normal"][0],
+                                              1024, ovf))
     hot = int((keys == DROP_KEY).sum(dim=1).max())
     report(f"hash_group on these keys, 1024 buckets: {skew_ms:.3f} ms (one "
-           f"request's drop-key bucket holds {hot} rows)")
+           f"request's drop-key bucket holds {hot} rows); the sort path "
+           f"{skew_sort_ms:.3f} ms ({skew_sort_ms / skew_ms:.2f}x)")
     del data
 
-    # times at the main path's keys: uniform over GROUP_KEYS, N(0,1) values
-    keys = torch.randint(0, GROUP_KEYS, (b, n), generator=gen, device="cuda",
-                         dtype=torch.int32)
+    # the main path's keys (uniform over GROUP_KEYS) and Zipf-skewed ones,
+    # at 1024 and 256 buckets: the direct path (group_aggregate's there)
+    # and the sort path against the plain version (integer values
+    # bitwise, N(0,1) within tolerance), each twice, bitwise equal, and
+    # request 1 alone bitwise equal to it stacked; then both timed at the
+    # same shape over N(0,1) values
+    keys_by = {"uniform": torch.randint(0, GROUP_KEYS, (b, n), generator=gen,
+                                        device="cuda", dtype=torch.int32),
+               "skewed": zipf_keys(gen, b, n)}
     v = torch.randn((b, n, 2), generator=gen, device="cuda")
+    vint = torch.round(v * 8)
+    vw = vals.shape[-1]
+    moved = (keys.numel() * (4 + 4 * vw) + keys.numel()
+             + b * 1024 * (8 + 12 * vw))
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    for kind, ks in keys_by.items():
+        for nb in (1024, 256):
+            if not hg.direct_chunk(nb):
+                raise AssertionError(f"hash_group: {nb} buckets left the "
+                                     f"direct path")
+            for vals_, rule in ((vint, "bitwise"), (v, "tolerance")):
+                exp = hg.group_aggregate_plain(ks, vals_, nb)
+                abs_sum = (hg.group_aggregate_plain(ks, vals_.abs(), nb)
+                           ["sum"] if rule == "tolerance" else None)
+                for path in (hg._direct, hg._sorted):
+                    got, again = (path(lib, ks, vals_, nb,
+                                       torch.empty_like(ovf))
+                                  for _ in range(2))
+                    for f in got:
+                        if not torch.equal(got[f].view(torch.uint8),
+                                           again[f].view(torch.uint8)):
+                            raise AssertionError(
+                                f"hash_group {path.__name__} {kind}: two "
+                                f"launches differ in {f}")
+                    err = max(err, same_groups(got, exp, abs_sum, rule))
+                    del got, again
+                got = hg.group_aggregate(ks, vals_, nb)
+                solo = hg.group_aggregate(ks[1:2].contiguous(),
+                                          vals_[1:2].contiguous(), nb)
+                for f in got:
+                    if not torch.equal(got[f][1].view(torch.uint8),
+                                       solo[f][0].view(torch.uint8)):
+                        raise AssertionError(f"hash_group {kind}: a request "
+                                             f"alone differs from it "
+                                             f"stacked in {f}")
+                del exp, abs_sum, solo
+            top = int(torch.bincount(ks[0].long()).max())
+            ms = cuda_ms(lambda: hg.group_aggregate(ks, v, nb))
+            sort_path_ms = cuda_ms(lambda: hg._sorted(lib, ks, v, nb, ovf))
+            times[(kind, nb)] = (ms, sort_path_ms)
+            report(f"hash_group {nb} buckets, {kind} keys (the largest key "
+                   f"holds {top} of a request's {n} rows): both paths equal "
+                   f"to the plain version (exact fields and integer sums "
+                   f"bitwise, N(0,1) sums within tolerance), two launches "
+                   f"bitwise equal, request 1 alone bitwise equal to it "
+                   f"stacked; direct path {ms:.3f} ms "
+                   f"({100 * bound_ms / ms:.1f}% of the 1024-bucket "
+                   f"bound), sort path {sort_path_ms:.3f} ms "
+                   f"({100 * bound_ms / sort_path_ms:.1f}%, "
+                   f"{sort_path_ms / ms:.2f}x)")
+    del vint
+    keys = keys_by["uniform"]
+    del keys_by
     for nb in (1024, 256):
         got = hg.group_aggregate(keys, v, nb)
         bucket = ref.bucket_of(keys, nb)
-        ms = cuda_ms(lambda: hg.group_aggregate(keys, v, nb))
+        ms = times[("uniform", nb)][0]
         sort_ms = cuda_ms(lambda: torch.sort(bucket, dim=-1, stable=True))
         times[nb] = (ms, sort_ms)
         report(f"hash_group {nb} buckets, {GROUP_KEYS} uniform keys: kernel "
-               f"{ms:.3f} ms, of which the bucket sort alone {sort_ms:.3f} "
-               f"ms")
+               f"{ms:.3f} ms; the bucket sort alone (the sort path's) "
+               f"{sort_ms:.3f} ms")
         if nb == 1024:
             plain_ms = cuda_ms(lambda: hg.group_aggregate_plain(keys, v, nb),
                                reps=3, warmup=1)
@@ -549,27 +622,47 @@ def check_hash_group(hg, ref, gen, b, n, report):
             library_ms = cuda_ms(library)
             del owned, idx, srcs, outs
         del got, bucket
-    vw = vals.shape[-1]
-    moved = (keys.numel() * (4 + 4 * vw) + keys.numel()
-             + b * 1024 * (8 + 12 * vw))
+    del ovf
+    report(f"hash_group 1024 buckets, uniform keys: {times[1024][0]:.3f} ms "
+           f"against a {bound_ms:.3f} ms bound "
+           f"({100 * bound_ms / times[1024][0]:.1f}%); sort path "
+           f"{times[('uniform', 1024)][1]:.3f} ms; scatter_reduce x3 "
+           f"{library_ms:.3f} ms; plain {plain_ms:.3f} ms")
     entry = {"name": "hash_group", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/hash_group.cu",
              "replaces": "src/repro/kernels/hash_group.py:171",
              "launches": None, "max_abs_err": err, "ms": times[1024][0],
              "sort_ms": times[1024][1], "ms_256_buckets": times[256][0],
              "sort_ms_256_buckets": times[256][1], "plain_ms": plain_ms,
-             "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-             "library_ms": library_ms, "shape": [b, n, vw, 1024]}
+             "bound_ms": bound_ms, "bound_by": "bytes",
+             "library_ms": library_ms, "shape": [b, n, vw, 1024],
+             "sort_path_ms": times[("uniform", 1024)][1],
+             "sort_path_ms_256_buckets": times[("uniform", 256)][1],
+             "ms_skewed": times[("skewed", 1024)][0],
+             "sort_path_ms_skewed": times[("skewed", 1024)][1],
+             "ms_256_buckets_skewed": times[("skewed", 256)][0],
+             "sort_path_ms_256_buckets_skewed": times[("skewed", 256)][1],
+             "ms_drop_key_hot": skew_ms,
+             "sort_path_ms_drop_key_hot": skew_sort_ms}
     wide = check_group_wide(hg, gen, b, report)
-    entry["ms_c64_v20"], prep_entry["ms_c64_v20"] = wide
+    entry["ms_c64_v20"], prep_entry["ms_c64_v20"] = wide[:2]
+    entry["sort_path_ms_c64_v20"] = wide[2]
     return [entry, prep_entry]
+
+
+def zipf_keys(gen, b, n):
+    """(b, n) int32 keys, Zipf(1.3) over [1, 2^20): key 1 holds ~19% of
+    the rows, a long tail the rest (skewed group-by keys)."""
+    u = torch.rand((b, n), generator=gen, device="cuda", dtype=torch.float64)
+    k = torch.floor(u.clamp(min=1e-12) ** (-1 / 0.3))
+    return k.clamp(max=2**20 - 1).to(torch.int32)
 
 
 def check_group_wide(hg, gen, b, report):
     """group_prep and group_aggregate past the old caps: a 64-column stack
-    of 2^20 rows a request, 20 value columns (two chunks of the
-    aggregation over one bucket sort), 1024 buckets, vs the plain
-    versions. Returns the two kernels' ms."""
+    of 2^20 rows a request, 20 value columns (four chunks of five on the
+    direct path), 1024 buckets, vs the plain versions. Returns the two
+    kernels' ms and the sort path's."""
     n, c = 1 << 20, 64
     t = special_table(gen, (b, n, c))
     t[:, :, 0] = torch.randint(0, 4096, (b, n), generator=gen,
@@ -594,11 +687,15 @@ def check_group_wide(hg, gen, b, report):
     del got, exp, abs_sum
     prep_ms = cuda_ms(lambda: hg.group_prep(*args))
     agg_ms = cuda_ms(lambda: hg.group_aggregate(keys, vals, 1024))
+    ovf = torch.empty(keys.shape, dtype=torch.bool, device="cuda")
+    sort_ms = cuda_ms(lambda: hg._sorted(hg._build.lib("hash_group.cu"),
+                                         keys, vals, 1024, ovf))
     report(f"group_prep + hash_group at {c} columns, {len(vcols)} value "
            f"columns, {b}x{n} rows: keys and values bitwise equal, groups "
            f"equal (sums within {e:.3g}); group_prep {prep_ms:.3f} ms, "
-           f"hash_group {agg_ms:.3f} ms")
-    return agg_ms, prep_ms
+           f"hash_group {agg_ms:.3f} ms ({hg.direct_chunk(1024)} value "
+           f"columns a chunk), its sort path {sort_ms:.3f} ms")
+    return agg_ms, prep_ms, sort_ms
 
 
 def join_probe(gen, b, n):
@@ -1582,6 +1679,62 @@ def check_da_case(da, q, k, v, lens, scale, name, report, f64=False):
     return err
 
 
+def check_da_nonfinite(da, q, k, v, lens, scale, name, report):
+    """Non-finite K and V against the plain version: in every other (p, b)
+    with rows one element of K or V inside the length is +inf, -inf or NaN
+    by turns; in the others with rows past the length, one V element there
+    is +inf, -inf or NaN. The kernels read no row past the length, so the
+    plain version runs over V with those rows zeroed. NaN and inf in the
+    same places (inf with its sign), m equal, the rest by the DA_TOL
+    rules; two launches bitwise equal."""
+    p, b, s, hkv, d = k.shape
+    kinds = [(k, float("inf")), (k, -float("inf")), (k, float("nan")),
+             (v, float("inf")), (v, -float("inf")), (v, float("nan"))]
+    for j, n in enumerate(lens.view(-1).tolist()):
+        if j % 2 == 0 and n > 0:
+            t, val = kinds[(j // 2) % 6]
+            t[j // b, j % b, (j * 31) % n, j % hkv, (j * 5) % d] = val
+        elif j % 2 and n < s:
+            v[j // b, j % b, n + (j * 7) % (s - n), j % hkv, (j * 5) % d] = (
+                kinds[3 + (j // 2) % 3][1])
+    seen = v.clone()
+    seen[torch.arange(s, device="cuda") >= lens[..., None]] = 0
+    o, m, l = da.decode_attention(q, k, v, lens, scale)
+    eo, em, el = da.decode_attention_plain(q, k, seen, lens, scale)
+    for got, exp, what in ((o, eo, "o"), (l, el, "l"), (m, em, "m")):
+        inf = torch.isinf(exp)
+        if not (torch.equal(torch.isnan(got), torch.isnan(exp))
+                and torch.equal(torch.isinf(got), inf)
+                and torch.equal(got[inf], exp[inf])):
+            raise AssertionError(f"decode_attention {name}: {what}'s NaN "
+                                 f"and inf differ from the plain version")
+    o_abs = da.decode_attention_plain(q, k, seen.abs(), lens, scale)[0]
+    fin = torch.isfinite(eo) & torch.isfinite(o_abs)
+    if float(((o - eo).abs() - DA_TOL * o_abs)[fin].max()) > 0:
+        raise AssertionError(f"decode_attention {name}: a finite o off by "
+                             f"more than {DA_TOL} of its sum |p v|")
+    fin = torch.isfinite(el)
+    if not (torch.allclose(l[fin], el[fin], rtol=DA_TOL, atol=DA_TOL)
+            and torch.allclose(m, em, rtol=DA_TOL, atol=DA_TOL)):
+        raise AssertionError(f"decode_attention {name}: l or m differs "
+                             f"from the plain version")
+    o2, m2, l2 = da.decode_attention(q, k, v, lens, scale)
+    if not all(torch.equal(a.view(torch.int32), c.view(torch.int32))
+               for a, c in ((o, o2), (m, m2), (l, l2))):
+        raise AssertionError(f"decode_attention {name}: two launches differ")
+    past = int(torch.isnan(da.decode_attention_plain(
+        q, k, v, lens, scale)[0]).any(-1).sum())
+    report(f"decode_attention {name}, +-inf and NaN in K and V: NaN and inf "
+           f"where the plain version has them ({int(torch.isnan(o).sum())} "
+           f"NaN and {int(torch.isinf(o).sum())} inf elements of o), m = 0 "
+           f"on the {int((em == 0).sum())} (p, b, head) rows of a +inf or "
+           f"NaN score, the rest within the DA rules, two launches bitwise "
+           f"equal; "
+           f"past the length the plain version over the unzeroed V has "
+           f"{past} NaN rows of o the kernel does not read")
+    return float((o - eo).abs()[torch.isfinite(eo)].max())
+
+
 def check_decode_attention(da, gen, report):
     """decode_attention vs its plain version on the card at the far-KV
     path's shape and beside it; times the kernel, its plain version and
@@ -1597,6 +1750,14 @@ def check_decode_attention(da, gen, report):
                 f"{str(dtype)[6:]} {lengths} {list(shape)}", report,
                 f64=dtype == torch.float32))
             del q, k, v, lens
+    # non-finite K and V: the tensor-core kernel (bf16) and the FMA kernel
+    # (f32) at the path's shape, ragged lengths
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, lens = da_inputs(gen, shape, dtype, "mixed")
+        err = max(err, check_da_nonfinite(
+            da, q, k, v, lens, KV_DH ** -0.5,
+            f"{str(dtype)[6:]} mixed {list(shape)}", report))
+        del q, k, v, lens
     p, b, s = shape[:3]
     for hkv, g, d in ((8, 1, 128), (4, 8, 128), (8, 4, 64), (8, 4, 256)):
         sh = (p, b, s, hkv, g, d)

@@ -8,17 +8,27 @@ states the contract and the design.
 
 What bounds it on the card: bytes. The function reads each row's key and
 values once and writes a byte of overflow mask per row plus small bucket
-tables; the kernel adds the stable sort of bucket ids (`torch.sort`, on
-the card, outside the hand-written passes) and a gather of every row by
-its sorted position, so it moves several times the bytes of its bound.
-Each bucket's segment of the sorted stream splits into pieces of at most
-4096 rows, one block each, folded per bucket in piece order: no float
-atomics, so two launches are bitwise equal, and a hot bucket (skewed
-keys, the drop-key bucket of a selective predicate) spreads over many
-blocks. Any table width and any number of value columns run: the
-prologue reads its plan from device memory, and the aggregation takes
-the value columns in chunks of 16 (the piece block's accumulators) over
-the one bucket sort.
+tables. Two hand-written paths, chosen from n_buckets alone
+(`direct_chunk`):
+
+* the direct path, wherever a block's bucket tables for one value column
+  fit in shared memory (up to 4096 buckets): no sort; a claim pass (each
+  bucket's first row by integer atomicMin), then blocks over contiguous
+  row ranges fixed by the request's row count alone (so a request gives
+  the same bits alone or stacked) that read keys and values in order,
+  reduce each warp's rows of one bucket by a fixed tree over the lanes
+  and fold the blocks in block order, once for each chunk of value
+  columns the shared memory holds (1024 buckets: 5 a chunk);
+* the sort path, past that (8192 buckets and more): the stable sort of
+  bucket ids (`torch.sort`), then pieces of at most 4096 sorted rows a
+  block, each row read through the sorted order (scattered), folded per
+  bucket in piece order, the value columns in chunks of 16 over the one
+  sort.
+
+Neither uses a float atomic, so two launches are bitwise equal, and a hot
+bucket (skewed keys, the drop-key bucket of a selective predicate) costs
+no more than any other. Any table width and any number of value columns
+run: the prologue reads its plan from device memory.
 
 Two wrappers, each with a plain torch version and a launch counter:
 
@@ -42,6 +52,23 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import select_project as _sp
+
+
+_INT32_MAX = 2**31 - 1
+# The direct path's shared memory a block (`hash_group.cu`, direct_smem):
+# per bucket its claimed key, count and not-owned flag (12 bytes), and per
+# value column a min key, a max key and a sum for each of 8 warps (40
+# bytes); within a block's 227 KB on sm_90, at most 16 columns a chunk.
+_SMEM_BYTES = 232448
+_MAX_CHUNK = 16
+
+
+def direct_chunk(n_buckets: int) -> int:
+    """The value columns the direct path aggregates a pass at n_buckets,
+    or 0 where the sort path runs (past 4096 buckets): a function of
+    n_buckets alone, so the path never depends on the data, the number of
+    value columns or the card."""
+    return max(0, min(_MAX_CHUNK, (_SMEM_BYTES // n_buckets - 12) // 40))
 
 
 def _check(t: torch.Tensor, what: str) -> None:
@@ -156,10 +183,10 @@ def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
     if n >= 2**31:
         raise ValueError("group_aggregate takes fewer than 2^31 rows a "
                          "request")
-    claimed = torch.full((b, n_buckets), ref.KEY_SENTINEL,
-                         dtype=torch.int32, device=dev)
     overflow = torch.empty((b, n), dtype=torch.bool, device=dev)
     if n == 0 or b == 0:        # nothing to aggregate: every bucket empty
+        claimed = torch.full((b, n_buckets), ref.KEY_SENTINEL,
+                             dtype=torch.int32, device=dev)
         return dict(bucket_keys=claimed, count=torch.zeros_like(claimed),
                     sum=torch.zeros((b, n_buckets, v), device=dev),
                     min=torch.full((b, n_buckets, v), ref.F32_BIG,
@@ -168,6 +195,52 @@ def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
                                    device=dev), overflow_mask=overflow)
     keys = keys.contiguous()
     values = values.contiguous()
+    path = _direct if direct_chunk(n_buckets) else _sorted
+    out = path(lib, keys, values, n_buckets, overflow)
+    group_aggregate.launches += 1
+    return out
+
+
+group_aggregate.launches = 0
+
+
+def _direct(lib, keys, values, n_buckets, overflow) -> dict:
+    """The direct path: the claim, then the aggregation and the merge of
+    each chunk of value columns, on the current stream."""
+    b, n = keys.shape
+    v = values.shape[2]
+    dev = keys.device
+    chunk = min(v, direct_chunk(n_buckets))
+    p = lib.hg_direct_parts(n)
+    first = torch.full((b, n_buckets), _INT32_MAX, dtype=torch.int32,
+                       device=dev)
+    pcount = torch.empty((b, p, n_buckets), dtype=torch.int32, device=dev)
+    part = [torch.empty((b, p, n_buckets, chunk), dtype=torch.float32,
+                        device=dev) for _ in range(3)]
+    claimed = torch.empty((b, n_buckets), dtype=torch.int32, device=dev)
+    count = torch.empty_like(claimed)
+    out = [torch.empty((b, n_buckets, v), dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    with torch.cuda.device(dev):
+        _build.check(lib.hg_direct(
+            keys.data_ptr(), values.data_ptr(), first.data_ptr(),
+            overflow.data_ptr(), pcount.data_ptr(),
+            *(t.data_ptr() for t in part), claimed.data_ptr(),
+            count.data_ptr(), *(t.data_ptr() for t in out), n, v, chunk, b,
+            n_buckets, p, torch.cuda.current_stream().cuda_stream),
+            lib.hg_error_string, "group_aggregate (direct path)")
+    return dict(bucket_keys=claimed, count=count, sum=out[0], min=out[1],
+                max=out[2], overflow_mask=overflow)
+
+
+def _sorted(lib, keys, values, n_buckets, overflow) -> dict:
+    """The sort path: bucket ids sorted stably, pieces of the sorted
+    stream, value columns in chunks of hg_max_vals."""
+    b, n = keys.shape
+    v = values.shape[2]
+    dev = keys.device
+    claimed = torch.full((b, n_buckets), ref.KEY_SENTINEL,
+                         dtype=torch.int32, device=dev)
     start = torch.zeros((b, n_buckets), dtype=torch.int32, device=dev)
     end = torch.zeros((b, n_buckets), dtype=torch.int32, device=dev)
     count = torch.empty((b, n_buckets), dtype=torch.int32, device=dev)
@@ -212,12 +285,8 @@ def group_aggregate(keys: torch.Tensor, values: torch.Tensor,
             keys.data_ptr(), claimed.data_ptr(), overflow.data_ptr(), n, b,
             n_buckets, stream), lib.hg_error_string,
             "group_aggregate overflow pass")
-    group_aggregate.launches += 1
     return dict(bucket_keys=claimed, count=count, sum=out[0], min=out[1],
                 max=out[2], overflow_mask=overflow)
-
-
-group_aggregate.launches = 0
 
 
 def group_aggregate_plain(keys: torch.Tensor, values: torch.Tensor,

@@ -183,6 +183,101 @@ def test_hash_group_kernel_matches_plain(card, n, n_buckets, v, integer):
                            again[f].cpu().view(torch.uint8)), f
 
 
+def _bytes_equal(a, b, what):
+    for f in a:
+        assert torch.equal(a[f].cpu().view(torch.uint8),
+                           b[f].cpu().view(torch.uint8)), (what, f)
+
+
+def _group_paths(card, keys, vals, nb, integer):
+    """Both private paths of `group_aggregate` (the direct one where
+    direct_chunk takes n_buckets, else the .cu refuses it) on the same
+    inputs against the plain version by `_same_groups`, each launched
+    twice and bitwise equal; the public wrapper bitwise equal to the path
+    n_buckets picks. Returns the picked path's result."""
+    lib = _build.lib("hash_group.cu")
+    keys, vals = keys.to(card), vals.to(card)
+    exp = thg.group_aggregate_plain(keys, vals, nb)
+    got = {}
+    for path in (thg._direct, thg._sorted):
+        def run():
+            return path(lib, keys, vals, nb, torch.empty(
+                keys.shape, dtype=torch.bool, device=card))
+        if path is thg._direct and not thg.direct_chunk(nb):
+            with pytest.raises(RuntimeError, match="direct path"):
+                run()
+            continue
+        got[path], again = run(), run()
+        torch.cuda.synchronize()
+        _same_groups(got[path], exp, integer)
+        _bytes_equal(got[path], again, path.__name__)
+    before = thg.group_aggregate.launches
+    pub = thg.group_aggregate(keys, vals, nb)
+    assert thg.group_aggregate.launches == before + 1
+    picked = got[thg._direct if thg.direct_chunk(nb) else thg._sorted]
+    _bytes_equal(pub, picked, "group_aggregate")
+    return picked
+
+
+@pytest.mark.parametrize("n", [70001, 1])
+@pytest.mark.parametrize("v", [1, 16, 17, 20])
+@pytest.mark.parametrize("nb", [1, 1024, 4096, 8192])
+def test_hash_group_paths_match_plain(card, nb, v, n):
+    """The direct path (up to 4096 buckets) and the sort path on each side
+    of the direct path's limit, value columns in one chunk and in several
+    (1024 buckets: 5 a chunk; 4096: 1), many blocks with a ragged last one
+    (70001 rows) and a stack of one-row requests. Integer values with
+    +-inf, NaN, -0.0 and subnormals bitwise; |N(0,1)| values (sums without
+    cancellation, so |sum| scales their rounding) within `_same_groups`'
+    tolerance. Keys include INT32_MIN, INT32_MAX and the drop key."""
+    for integer in (True, False):
+        keys, vals = _group_input(nb + 31 * v + n, 2, n, v, integer)
+        _group_paths(card, keys, vals if integer else vals.abs(), nb,
+                     integer)
+
+
+@pytest.mark.parametrize("nb", [256, 4096])
+@pytest.mark.parametrize("kind", ["one_key", "drop_key", "zipf"])
+def test_hash_group_hot_buckets_match_plain(card, kind, nb):
+    """Hot buckets on both paths: every row one key (a bucket holding all
+    rows, 32 peers a warp group), 90% drop-key rows (a selective
+    predicate's) and Zipf-skewed keys."""
+    rng = np.random.default_rng(nb)
+    n = 200003
+    for integer in (True, False):
+        keys, vals = _group_input(n + nb, 2, n, 2, integer)
+        k = keys.numpy()
+        if kind == "one_key":
+            k[:] = 12345
+        elif kind == "drop_key":
+            k[rng.random(k.shape) < 0.9] = _DROP_KEY
+        else:
+            k[:] = np.minimum(rng.zipf(1.3, size=k.shape), 2**31 - 1)
+        got = _group_paths(card, keys, vals if integer else vals.abs(), nb,
+                           integer)
+        if kind == "one_key":
+            assert int(got["count"].max()) == n
+
+
+@pytest.mark.parametrize("nb,v", [(1024, 2), (256, 17), (8192, 1)])
+@pytest.mark.parametrize("n", [70001, 2_100_003])
+def test_hash_group_stacked_equals_solo_bitwise(card, nb, v, n):
+    """One request of N(0,1) values gives the same bits alone and stacked
+    with 3 others, on both sides of the path choice: its row ranges, and
+    so the order of its f32 sums, are fixed by its own rows alone
+    (2_100_003 rows reach the direct path's cap of 256 blocks a
+    request)."""
+    keys, vals = _group_input(n + nb + v, 4, n, v, False)
+    keys, vals = keys.to(card), vals.to(card)
+    solo = thg.group_aggregate(keys[2:3].contiguous(),
+                               vals[2:3].contiguous(), nb)
+    stacked = thg.group_aggregate(keys, vals, nb)
+    torch.cuda.synchronize()
+    for f in solo:
+        assert torch.equal(solo[f][0].cpu().view(torch.uint8),
+                           stacked[f][2].cpu().view(torch.uint8)), f
+
+
 @pytest.mark.parametrize("n", [1, 300, 4099])
 def test_group_prep_kernel_matches_plain(card, n):
     rng = np.random.default_rng(n)

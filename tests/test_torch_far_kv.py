@@ -177,6 +177,27 @@ def test_past_length_nonfinite_v_is_a_recorded_divergence():
         assert torch.equal(zm, tm) and torch.equal(zl, tl)
 
 
+def test_all_minus_inf_scores_keep_the_empty_m():
+    """A (b, head) whose every valid score is -inf reads as an empty one:
+    the port's m = -1e30 (ROADMAP.md queue 3 item 6), JAX ref's 0; o and
+    l are 0 on both sides."""
+    q, k, v = _qkv(12, b=2, hq=2, hkv=1, d=4, s=3)
+    q[..., 0], k[..., 0] = 1.0, -np.inf
+    q[1, :, 0] = -1.0                        # sequence 1: +inf scores
+    lens = np.asarray([3, 2], np.int32)
+    to, tm, tl = tref.decode_attention(*map(torch.from_numpy, (q, k, v)),
+                                       torch.from_numpy(lens))
+    jo, jm, jl = jref.decode_attention(*map(jnp.asarray, (q, k, v)),
+                                       jnp.asarray(lens))
+    assert (_np(tm)[0] == np.float32(NEG_INF)).all()
+    assert (np.asarray(jm)[0] == 0.0).all()
+    assert (_np(to)[0] == 0).all() and (_np(tl)[0] == 0).all()
+    np.testing.assert_array_equal(_np(to)[0], np.asarray(jo)[0])
+    np.testing.assert_array_equal(_np(tl)[0], np.asarray(jl)[0])
+    _same_nonfinite(tm[1:], jm[1:])          # +inf: base 0 on both sides
+    _same_nonfinite(tl[1:], jl[1:])
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("kind", sorted(LENGTHS))
 def test_ops_decode_attention_matches_the_pallas_kernel(kind, dtype):

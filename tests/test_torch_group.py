@@ -561,3 +561,44 @@ def test_wrappers_refuse_bad_arguments():
         thg.group_prep(torch.zeros((1, 4, 3)), 0, [1], np.zeros(3, np.int32),
                        np.zeros(3, np.float32),
                        torch.ones(1, dtype=torch.int32), _DROP_KEY)
+
+
+@pytest.mark.parametrize("n_buckets,chunk", [(1, 16), (256, 16), (1024, 5),
+                                             (2048, 2), (4096, 1),
+                                             (8192, 0), (65536, 0)])
+def test_direct_chunk_is_what_shared_memory_holds(n_buckets, chunk):
+    """The direct path's value columns a pass: as many as a block's bucket
+    tables hold in 227 KB of shared memory (12 bytes a bucket, 40 a bucket
+    and column), at most 16; none past 4096 buckets (the sort path)."""
+    assert thg.direct_chunk(n_buckets) == chunk
+    if chunk:
+        assert n_buckets * (12 + 40 * chunk) <= 232448
+    if 0 < chunk < 16:
+        assert n_buckets * (12 + 40 * (chunk + 1)) > 232448
+
+
+@pytest.mark.parametrize("n_buckets", [1, 1024, 4096, 8192, 65536])
+def test_group_aggregate_path_depends_on_n_buckets_alone(monkeypatch,
+                                                         n_buckets):
+    """The wrapper picks its path from the host integer n_buckets alone:
+    the same path for any number of rows or value columns, any stack and
+    any keys (one key, uniform, the drop key), with no look at a tensor's
+    contents. Here on the CPU with the launch stubbed out."""
+    calls = []
+    monkeypatch.setattr(thg, "_check", lambda t, what: None)
+    monkeypatch.setattr(thg._build, "lib", lambda src: None)
+    for name in ("_direct", "_sorted"):
+        monkeypatch.setattr(thg, name,
+                            lambda lib, k, v, nb, ovf, name=name:
+                            calls.append(name) or {})
+    rng = np.random.default_rng(n_buckets)
+    runs = 0
+    for b, n, v in ((1, 1, 1), (3, 5000, 5), (2, 300, 6), (4, 70, 40)):
+        for keys in (np.full((b, n), 7), rng.integers(0, 300, (b, n)),
+                     np.full((b, n), _DROP_KEY)):
+            thg.group_aggregate(_t(keys.astype(np.int32)),
+                                _t(rng.normal(size=(b, n, v))
+                                   .astype(np.float32)), n_buckets)
+            runs += 1
+    path = "_direct" if n_buckets <= 4096 else "_sorted"
+    assert calls == [path] * runs
