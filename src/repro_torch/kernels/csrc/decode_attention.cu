@@ -512,11 +512,12 @@ da_stream_kernel(const void* __restrict__ q, long long q_sp, long long q_sb,
 // f32 over the stored values, in another order. Where part 0's sum is not
 // finite (an infinite K or V element, an infinite or NaN p), that sum is
 // taken alone: its infinities carry the reference's signs, and a zero
-// part of the others times an infinity would be NaN (part_sum). One
-// corner stays apart from the reference (ROADMAP.md queue 3): an f32 q
-// element or a p below bf16's least subnormal (2^-133) splits into three
-// zero parts, so against an infinite K or V element it gives NaN where
-// the reference's f32 product gives an infinity.
+// part of the others times an infinity would be NaN (part_sum). A
+// nonzero x of at most 2^-134, which bf16 rounds to 0, splits into
+// (s, -s, 0) with s = +-2^-133 of x's sign: the parts still sum to the 0
+// that it split into before, but part 0 times an infinite K or V element
+// is an infinity of the reference's sign, where three zero parts would
+// give NaN.
 constexpr int kMmaRows = 16;   // rows a stage
 
 bool mma_takes(int D, int G, int bf16) {
@@ -570,12 +571,19 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
   return (uint32_t)__bfloat16_as_ushort(a)
          | ((uint32_t)__bfloat16_as_ushort(b) << 16);
 }
-// the three bf16 parts of x, each exact, their sum x
+// the three bf16 parts of x, each exact, their sum x (0 where |x| <=
+// 2^-134, part 0 then nonzero of x's sign)
 __device__ __forceinline__ void split3(float x, __nv_bfloat16* part) {
   part[0] = __float2bfloat16_rn(x);
   const float r = x - __bfloat162float(part[0]);
   part[1] = __float2bfloat16_rn(r);
   part[2] = __float2bfloat16_rn(r - __bfloat162float(part[1]));
+  if (x != 0.f && __bfloat162float(part[0]) == 0.f) {
+    part[0] = __ushort_as_bfloat16(
+        (unsigned short)((__float_as_uint(x) >> 16 & 0x8000u) | 1u));
+    part[1] = __ushort_as_bfloat16(__bfloat16_as_ushort(part[0]) ^ 0x8000u);
+    part[2] = __float2bfloat16_rn(0.f);
+  }
 }
 
 // the three parts' sum, part 0 alone where it is not finite

@@ -219,6 +219,15 @@ def _group_paths(card, keys, vals, nb, integer):
     return picked
 
 
+def test_direct_chunk_equals_the_librarys(card):
+    """The host's copy of the direct path's shared-memory layout
+    (`direct_chunk`) gives the library's hg_direct_chunk at every power of
+    two up to 2^20 buckets."""
+    lib = _build.lib("hash_group.cu")
+    for nb in (1 << e for e in range(21)):
+        assert thg.direct_chunk(nb) == lib.hg_direct_chunk(nb), nb
+
+
 @pytest.mark.parametrize("n", [70001, 1])
 @pytest.mark.parametrize("v", [1, 16, 17, 20])
 @pytest.mark.parametrize("nb", [1, 1024, 4096, 8192])
@@ -838,35 +847,36 @@ def test_decode_attention_nonfinite_kv_matches_plain(card, kernel, s,
         assert bool(torch.isnan(po).any()) and bool(torch.isfinite(o).all())
 
 
-def test_decode_attention_tensor_core_corner_is_a_recorded_divergence(card):
+def test_decode_attention_tensor_core_tiny_parts_match_plain(card):
     """The tensor-core kernel splits an f32 q element and a p into three
-    bf16 parts; below bf16's least subnormal (2^-133) all three are 0, so
-    against an infinite K or V element the kernel gives NaN where the
-    plain version's f32 product gives inf (ROADMAP.md queue 3). A bf16 q
-    (the far path's) never has such an element."""
+    bf16 parts. A nonzero one of at most 2^-134, which bf16 rounds to 0,
+    keeps a nonzero part 0 of its sign, so against an infinite K or V
+    element the kernel gives the plain version's infinity, not NaN: p =
+    exp(-95) ~ 5.5e-42 and exp(-90) ~ 8.2e-40 (a bf16 subnormal) against
+    +inf and -inf in V, then q = 1e-41 against +inf in K."""
     d = 128
     q = torch.zeros((1, 1, 4, d), device=card)
     q[..., 0] = 1.0
-    q[..., 1] = 1e-41                        # under 2^-133 ~ 9.2e-41
+    q[..., 1] = 1e-41                        # under 2^-134 ~ 4.6e-41
     k = torch.zeros((1, 1, 3, 1, d), device=card, dtype=torch.bfloat16)
     v = torch.ones((1, 1, 3, 1, d), device=card, dtype=torch.bfloat16)
-    k[0, 0, 1, 0, 0] = -95.0                 # p = exp(-95) ~ 5.5e-42
+    k[0, 0, 1, 0, 0] = -95.0
+    k[0, 0, 2, 0, 0] = -90.0
     v[0, 0, 1, 0, 0] = float("inf")
-    lens = torch.tensor([[2]], dtype=torch.int32, device=card)
-    o, _, _ = tda.decode_attention(q, k, v, lens, 1.0)
-    eo, _, _ = tda.decode_attention_plain(q, k, v, lens, 1.0)
-    assert bool(torch.isinf(eo[..., 0]).all())
-    assert bool(torch.isnan(o[..., 0]).all())        # p's corner
-    k[0, 0, 1, 0, 0] = 0.0
-    k[0, 0, 2, 0, 1] = float("inf")
-    lens[:] = 3
-    v[0, 0, 1, 0, 0] = 1.0
-    # q's corner: the plain score is +inf, the kernel's NaN; both take
-    # base 0, but p = exp(NaN) makes the kernel's l NaN where it is inf
-    _, m, l = tda.decode_attention(q, k, v, lens, 1.0)
-    _, em, el = tda.decode_attention_plain(q, k, v, lens, 1.0)
-    assert bool((em == 0).all()) and bool((m == 0).all())
-    assert bool(torch.isinf(el).all()) and bool(torch.isnan(l).all())
+    v[0, 0, 2, 0, 1] = -float("inf")
+    lens = torch.tensor([[3]], dtype=torch.int32, device=card)
+    for case in ("p", "q"):
+        if case == "q":
+            k[0, 0, 1:, 0, 0] = 0.0
+            k[0, 0, 2, 0, 1] = float("inf")
+            v[0, 0, 1:] = 1.0
+        got = tda.decode_attention(q, k, v, lens, 1.0)
+        exp = tda.decode_attention_plain(q, k, v, lens, 1.0)
+        assert bool(torch.isinf(exp[0 if case == "p" else 2]).any()), case
+        for g, e, what in zip(got, exp, "oml"):
+            _same_places(g, e, f"{case}: {what}")
+            fin = torch.isfinite(e)
+            torch.testing.assert_close(g[fin], e[fin], **DA_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
