@@ -622,7 +622,29 @@ def check_hash_group(hg, ref, gen, b, n, report):
             library_ms = cuda_ms(library)
             del owned, idx, srcs, outs
         del got, bucket
-    del ovf
+    # past the direct path's limit the sort path is the only one: timed at
+    # 8192 and 65536 buckets over keys uniform in [0, 65536), beside one
+    # direct pass at 4096 buckets over one value column (claim included),
+    # which a direct path over ranges of 4096 buckets would run
+    # n_buckets / 4096 x V times
+    many = torch.randint(0, 1 << 16, (b, n), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    v1 = v[..., :1].contiguous()
+    one_pass_ms = cuda_ms(lambda: hg._direct(lib, many, v1, 4096, ovf))
+    del v1
+    for nb in (8192, 65536):
+        if hg.direct_chunk(nb):
+            raise AssertionError(f"hash_group: {nb} buckets took the direct "
+                                 f"path")
+        sort_far_ms = cuda_ms(lambda: hg._sorted(lib, many, v, nb, ovf))
+        passes = nb // 4096 * v.shape[-1]
+        times[("far", nb)] = sort_far_ms
+        report(f"hash_group {nb} buckets, keys uniform in [0, 65536): the "
+               f"sort path (the only one there) {sort_far_ms:.3f} ms; "
+               f"{passes} direct passes over bucket ranges would take about "
+               f"{passes * one_pass_ms:.3f} ms (one pass at 4096 buckets "
+               f"and one value column {one_pass_ms:.3f} ms)")
+    del many, ovf
     report(f"hash_group 1024 buckets, uniform keys: {times[1024][0]:.3f} ms "
            f"against a {bound_ms:.3f} ms bound "
            f"({100 * bound_ms / times[1024][0]:.1f}%); sort path "
@@ -643,7 +665,10 @@ def check_hash_group(hg, ref, gen, b, n, report):
              "ms_256_buckets_skewed": times[("skewed", 256)][0],
              "sort_path_ms_256_buckets_skewed": times[("skewed", 256)][1],
              "ms_drop_key_hot": skew_ms,
-             "sort_path_ms_drop_key_hot": skew_sort_ms}
+             "sort_path_ms_drop_key_hot": skew_sort_ms,
+             "sort_path_ms_8192_buckets": times[("far", 8192)],
+             "sort_path_ms_65536_buckets": times[("far", 65536)],
+             "direct_one_pass_ms_4096_buckets": one_pass_ms}
     wide = check_group_wide(hg, gen, b, report)
     entry["ms_c64_v20"], prep_entry["ms_c64_v20"] = wide[:2]
     entry["sort_path_ms_c64_v20"] = wide[2]

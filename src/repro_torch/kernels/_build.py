@@ -55,6 +55,7 @@ _SIGNATURES = {
         "hg_piece_rows": ([], _I),
         "hg_direct": ([_P] * 13 + [_LL, _I, _I, _I, _I, _LL, _P], _I),
         "hg_direct_parts": ([_LL], _LL),
+        "hg_direct_chunk": ([_I], _I),
         "hg_overflow": ([_P, _P, _P, _LL, _I, _I, _P], _I),
         "hg_max_vals": ([], _I),
         "hg_error_string": ([_I], ctypes.c_char_p),

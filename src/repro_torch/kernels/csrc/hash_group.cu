@@ -825,6 +825,15 @@ int hg_aggregate(const void* order, const void* keys, const void* vals,
 // the direct path's blocks a request for N rows: the P of hg_direct
 long long hg_direct_parts(long long N) { return direct_parts(N); }
 
+// the most value columns a direct pass takes at nb buckets, 0 where the
+// bucket tables of one column do not fit (the sort path's n_buckets);
+// hash_group.py's direct_chunk computes the same on the host
+int hg_direct_chunk(int nb) {
+  int vc = kMaxVals;
+  while (vc > 0 && direct_smem(nb, vc) > kSmemLimit) --vc;
+  return vc;
+}
+
 // keys (B, N) i32, vals (B, N, V) f32; first (B, nb) i32 pre-filled with
 // INT_MAX; overflow (B, N) u8; partials pcount (B, P, nb) i32 and
 // psum/pmin/pmax (B, P, nb, Vc) f32, P = hg_direct_parts(N); outputs

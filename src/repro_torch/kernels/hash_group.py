@@ -55,10 +55,12 @@ from repro_torch.kernels import select_project as _sp
 
 
 _INT32_MAX = 2**31 - 1
-# The direct path's shared memory a block (`hash_group.cu`, direct_smem):
-# per bucket its claimed key, count and not-owned flag (12 bytes), and per
-# value column a min key, a max key and a sum for each of 8 warps (40
-# bytes); within a block's 227 KB on sm_90, at most 16 columns a chunk.
+# Copies of `hash_group.cu`'s direct_smem, kSmemLimit and kMaxVals, so that
+# the path is chosen on the host without the library: per bucket its
+# claimed key, count and not-owned flag (12 bytes), and per value column a
+# min key, a max key and a sum for each of 8 warps (40 bytes); within a
+# block's 227 KB on sm_90, at most 16 columns a chunk. A `cuda` test holds
+# direct_chunk to the library's hg_direct_chunk.
 _SMEM_BYTES = 232448
 _MAX_CHUNK = 16
 
