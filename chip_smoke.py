@@ -187,6 +187,11 @@ KV_BF16_TOL = 2e-2
 # cuBLAS's, within DA_TOL of its sum of |terms| (the rule of group sums)
 DA_TOL = 1e-5
 DA_BATCH = 20   # decode_attention and SDPA: launches a timed run
+# the tiered path: benchmarks/bench_tiering.py's analytics data over
+# bench_selection.py's schema, 2^25 rows x 8 words (1 GiB, 512 pages)
+TIER_ROWS_LOG2 = 25
+TIER_SMART_IDX = [1, 4, 6]             # SmartAddress's 3 columns
+TIER_PROMOTE = 64                      # pages in the timed promotion
 
 
 def parse_args(argv):
@@ -2052,6 +2057,342 @@ def far_kv_path(fk, ref, kernels, gen, seed, report):
     del caches
     return launches, p50
 
+def tg_random(rng, b, p, c, pw, n_frames=6):
+    """A random word buffer and random descriptors (host arrays): every
+    mode, widths 0..33, bit offsets straddling words and running off both
+    ends of the frame, dictionary offsets outside it, bases across the
+    u32 range."""
+    buf = rng.integers(0, 2**32, (n_frames, pw), dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    desc = (rng.integers(0, n_frames, (b, p)).astype(np.int32),
+            rng.integers(0, 3, (b, p, c)).astype(np.int32),
+            rng.integers(0, 34, (b, p, c)).astype(np.int32),
+            rng.integers(0, 2**32, (b, p, c), dtype=np.uint64).astype(
+                np.uint32),
+            rng.integers(-8, pw + 8, (b, p, c)).astype(np.int32),
+            rng.integers(-64, pw * 32 + 64, (b, p, c)).astype(np.int32))
+    return buf, desc
+
+
+def tg_words(rng, n, c):
+    """Words whose column planes need every packed width 1..32 (column j
+    spans [0, 2^(j % 32 + 1))), dictionary-friendly columns, and NaN
+    payloads, inf, -0.0 and subnormals in every third column."""
+    u = np.zeros((n, c), np.uint64)
+    for j in range(c):
+        w = j % 32 + 1
+        if j % 5 == 4:
+            u[:, j] = rng.integers(0, 2**32, 7, dtype=np.uint64)[
+                rng.integers(0, 7, n)]
+        else:
+            u[:, j] = rng.integers(0, 2**w, n, dtype=np.uint64)
+            u[0, j] = 2**w - 1
+    u = u.astype(np.uint32)
+    specials = u[:, ::3]
+    flat = specials.reshape(-1)
+    for v in (0x7FC0BEEF, 0xFFC00001, 0x7F800000, 0x80000000, 0x00000005,
+              0x807FFFFF):
+        flat[rng.integers(0, flat.size, max(1, flat.size // 200))] = v
+    u[:, ::3] = flat.reshape(specials.shape)
+    return u.view(np.float32)
+
+
+def tg_pair(tg, buf, tier, n, c, cols, pw, what):
+    """The kernel and the plain version on the same operands, bitwise.
+    Returns (kernel output, word error)."""
+    got = tg.tier_gather(buf, tier, n, c, cols, pw)
+    exp = tg.tier_gather_plain(buf, tier, n, c, cols, pw)
+    err = word_err(got, exp)
+    if err:
+        raise AssertionError(f"tier_gather {what}: kernel and plain differ "
+                             f"(word err {err})")
+    return got, err
+
+
+def check_tier_gather(tg, fpool, fv, seed, report):
+    """tier_gather against its plain version on the card, bitwise: random
+    descriptors at C = 3, 5, 7, 8, B = 1 and 4; a pool's real cold frames
+    (4 KiB pages, every other page cold: delta and dictionary planes of
+    widths 1..32, pages starting mid-row, NaN and subnormal payloads)
+    alone, column-granular and stacked with null-descriptor padding; one
+    request alone against the same request in a stack. Returns the
+    largest word error (0)."""
+    rng = np.random.default_rng(seed)
+    pw = 4096 // 4
+    for c in (3, 5, 7, 8):
+        for b in (1, 4):
+            buf, desc = tg_random(rng, b, 3, c, pw)
+            tbuf = torch.from_numpy(buf.view(np.int32).copy()).cuda().view(
+                torch.float32)
+            tier = tg.tier_tensors(desc, "cuda")
+            for cols in (None, [c - 1, 0, c - 1], [c // 2]):
+                tg_pair(tg, tbuf, tier, 3 * pw // c, c, cols, pw,
+                        f"random descriptors C={c} B={b} cols={cols}")
+    report("tier_gather random descriptors (C = 3, 5, 7, 8; B = 1, 4; "
+           "widths 0..33, offsets off both ends): bitwise equal")
+    for c in (3, 5, 7, 8, 32):
+        n = 2500 if c < 32 else 700
+        words = tg_words(rng, n, c)
+        pool = fpool.FarPool(8 * 2**20, page_bytes=4096, device="cuda")
+        ft = pool.alloc_table(fv.FTable(
+            "t", tuple(fv.Column(f"c{i}") for i in range(c)), n_rows=n))
+        pool.write_table(ft, words)
+        p_n = len(ft.pages)
+        pool.demote_table(ft, page_idx=range(0, p_n, 2))
+        te = pool._tier[ft.table_id]
+        widths = sorted(set(te.width[te.cold].reshape(-1).tolist()))
+        modes = set(te.mode[te.cold].reshape(-1).tolist())
+        if not (te.cold.any() and not te.cold.all() and {1, 2} <= modes):
+            raise AssertionError(f"tier_gather C={c}: the frames hold no "
+                                 "mixed delta and dictionary planes")
+        desc = pool.tier_desc_padded(ft, p_n + 2)
+        null = tg.null_descriptor(p_n + 2, c, pool.null_page)
+        one = tg.tier_tensors(desc, "cuda")
+        stack = tg.tier_tensors(tuple(np.stack([a, b, a, b]) for a, b in
+                                      zip(null, desc)), "cuda")
+        rows = (p_n + 2) * pw // c
+        for tier, what in ((one, "B=1"), (stack, "B=4")):
+            for cols in (None, [c - 1, 0]):
+                tg_pair(tg, pool.buf, tier, rows, c, cols, pw,
+                        f"pool frames C={c} {what} cols={cols}")
+        alone, _ = tg_pair(tg, pool.buf, one, n, c, None, pw, "alone")
+        stacked, _ = tg_pair(tg, pool.buf, stack, n, c, None, pw, "stacked")
+        if (word_err(alone, torch.from_numpy(words).cuda())
+                or word_err(stacked[1], alone) or word_err(stacked[3], alone)
+                or stacked[0].view(torch.int32).any()):
+            raise AssertionError(f"tier_gather C={c}: decoded words differ "
+                                 "from the written ones, or a request "
+                                 "alone from the same request stacked")
+        report(f"tier_gather pool frames C={c}: {p_n} pages, "
+               f"{int(te.cold.sum())} cold, plane widths {widths}, B = 1 "
+               f"and 4 with null padding: bitwise equal to the plain "
+               f"version and the written words; request 1 alone == "
+               f"stacked")
+        del pool
+    return 0
+
+
+def analytics_words(gen, n):
+    """benchmarks/bench_tiering.py's `_analytics_data`, made on the card:
+    c0 an i32 key uniform in [0, 64), c1..c7 integer-valued f32 uniform in
+    [0, 128)."""
+    w = torch.randint(0, 128, (n, 8), generator=gen, device="cuda").float()
+    w[:, 0] = torch.randint(0, 64, (n,), generator=gen,
+                            device="cuda").float()
+    return w
+
+
+def same_result(a, b, what):
+    """Two results of one verb bitwise equal: rows and count, or the
+    groups payload; and their shipped bytes."""
+    if a.kind == "groups":
+        ga, gb = a.groups, b.groups
+        bad = [f for f in ("bucket_keys", "count", "sum", "min", "max")
+               if word_err(ga[f], gb[f])]
+        if bad or not (np.array_equal(ga["ovf_keys"], gb["ovf_keys"])
+                       and np.array_equal(ga["ovf_vals"].view(np.uint32),
+                                          gb["ovf_vals"].view(np.uint32))):
+            raise AssertionError(f"{what}: groups differ ({bad})")
+    elif a.count != b.count or word_err(a.rows, b.rows):
+        raise AssertionError(f"{what}: rows differ ({a.count} vs {b.count})")
+    if a.shipped_bytes != b.shipped_bytes:
+        raise AssertionError(f"{what}: shipped {a.shipped_bytes} vs "
+                             f"{b.shipped_bytes}")
+
+
+def tiered_round(fv, node, qps, t, p, strict):
+    """One stacked round of a verb (one request a connection), flushed
+    under sync debug mode "error" when `strict`; the finalized results."""
+    if strict:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        reqs = submit_round(fv, qps, t, p)
+        node.flush()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [r.wait() for r in reqs]
+
+
+def tiered_path(fv, op, tg, fpool, kernels, gen, report):
+    """The tiered path: bench_tiering.py's analytics table at full size
+    demoted to the cold tier, the five verbs in stacked rounds over it,
+    each bitwise its round over a hot copy, a mixed-tier round, a timed
+    promotion; tier_gather held to its plain version at the path's
+    shapes and timed. Returns (launches, p50s, tier_gather's entry)."""
+    n = 1 << TIER_ROWS_LOG2
+    node = fv.FViewNode(3 * 2**30, n_regions=N_CONNECTIONS,
+                        promote_after=10**9, device="cuda")
+    qps = [fv.open_connection(node) for _ in range(N_CONNECTIONS)]
+    cols = tuple(fv.Column(f"c{i}", "i32" if i == 0 else "f32")
+                 for i in range(8))
+    words = analytics_words(gen, n)
+    cold = fv.alloc_table_mem(qps[0], fv.FTable("facts", cols, n_rows=n))
+    fv.table_write(qps[0], cold, words)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    demoted = node.pool.demote_table(cold)
+    demote_s = time.perf_counter() - t0
+    summary = node.pool.tier_summary()
+    report(f"tiered path: demote_table of {len(cold.pages)} pages "
+           f"({demoted} demoted) {demote_s:.3f} s on the host; "
+           f"tier_summary {summary}")
+    if demoted != len(cold.pages) or summary["effective_capacity"] < 1.5:
+        raise AssertionError("tiered path: the analytics table did not "
+                             "demote to an effective capacity >= 1.5")
+    hot = fv.alloc_table_mem(qps[0], fv.FTable("facts_hot", cols, n_rows=n))
+    fv.table_write(qps[0], hot, words)
+    report(f"with the hot copy: effective capacity "
+           f"{node.pool.tier_summary()['effective_capacity']:.4f}")
+
+    # ---- the kernel at the path's shapes: B=4 stacked requests
+    b, pw, buf = N_CONNECTIONS, node.pool.page_words, node.pool.buf
+    tier4 = node.pool.tier_desc_stacked([cold] * b, len(cold.pages))
+    err = 0
+    for sel_cols, what in ((None, "rows"), (TIER_SMART_IDX, "3 columns")):
+        got, e = tg_pair(tg, buf, tier4, n, 8, sel_cols, pw,
+                         f"path shape {what}")
+        err = max(err, e)
+        ref_cols = words if sel_cols is None else words[:, sel_cols]
+        if any(word_err(got[i], ref_cols) for i in range(b)):
+            raise AssertionError(f"tier_gather {what}: the decoded words "
+                                 "differ from the written ones")
+        del got
+    report(f"tier_gather at B={b} x 2^{TIER_ROWS_LOG2} rows x 8 words, rows "
+           "and 3 columns: bitwise equal to the plain version and to the "
+           "written words")
+    ms = cuda_ms(lambda: tg.tier_gather(buf, tier4, n, 8, None, pw))
+    ms3 = cuda_ms(lambda: tg.tier_gather(buf, tier4, n, 8, TIER_SMART_IDX,
+                                         pw))
+    plain_ms = cuda_ms(lambda: tg.tier_gather_plain(buf, tier4, n, 8, None,
+                                                    pw), reps=3, warmup=1)
+    read = b * node.pool.tier_read_bytes(cold)
+    read3 = b * node.pool.tier_read_bytes(cold, TIER_SMART_IDX)
+    out_bytes, out3 = b * n * 8 * 4, b * n * 3 * 4
+    bound = (read + out_bytes) / HBM_BYTES_PER_S * 1e3
+    bound3 = (read3 + out3) / HBM_BYTES_PER_S * 1e3
+    # the flat page gather beside it: B=4 requests over one table (as the
+    # rows path stacks them) and one request
+    pages = node.pool.pages_of(hot)
+    flat4 = cuda_ms(lambda: fpool.gather_rows(buf, pages.expand(b, -1), n,
+                                              8))
+    flat1 = cuda_ms(lambda: fpool.gather_rows(buf, pages[None], n, 8))
+    report(f"tier_gather rows {ms:.3f} ms (bound {bound:.3f} ms: reads "
+           f"{read} B of planes and dictionaries, writes {out_bytes} B; "
+           f"{100 * bound / ms:.1f}% of it, "
+           f"{(read + out_bytes) / ms / 1e6:.1f} GB/s); 3 columns "
+           f"{ms3:.3f} ms (bound {bound3:.3f} ms: reads {read3} B, writes "
+           f"{out3} B); plain version {plain_ms:.3f} ms (in row chunks)")
+    report(f"flat page gather (torch indexing) of the hot copy: B={b} "
+           f"{flat4:.3f} ms (reads {out_bytes} B, writes {out_bytes} B: "
+           f"{2 * out_bytes / flat4 / 1e6:.1f} GB/s), B=1 {flat1:.3f} ms "
+           f"({2 * out_bytes // b / flat1 / 1e6:.1f} GB/s)")
+    del tier4
+
+    sel = op.Select((op.Predicate("c1", "<", 64.0),
+                     op.Predicate("c2", ">", 16.0)))
+    pipes = {
+        "selection": (sel,),
+        "projection": (op.Project(("c0", "c3", "c5")),),
+        "smart_addressing": (op.SmartAddress(tuple(
+            f"c{i}" for i in TIER_SMART_IDX)),),
+        "group_by": (op.GroupBy("c0", ("c1", "c2"), n_buckets=64),),
+        "selection_post_encrypt": (sel, op.Crypt(KEY_POST, NONCE_POST,
+                                                 "post")),
+    }
+
+    # ---- the counted run: each verb's cold round (flushed without a host
+    # sync), then its hot round; every cold result bitwise the hot one
+    reset_launches(kernels)
+    d0 = node.dispatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, p in pipes.items():
+        cold_res = tiered_round(fv, node, qps, cold, p, strict=True)
+        hot_res = tiered_round(fv, node, qps, hot, p, strict=False)
+        want = node.pool.tier_read_bytes(
+            cold, fv.compile_pipeline(cold, p, tiered=True).read_cols)
+        for c_res, h_res in zip(cold_res, hot_res):
+            same_result(c_res, h_res, f"cold {name}")
+            if not c_res.read_bytes == want < h_res.read_bytes:
+                raise AssertionError(f"cold {name}: read {c_res.read_bytes}"
+                                     f", tier_read_bytes {want}, hot "
+                                     f"{h_res.read_bytes}")
+        r0 = cold_res[0]
+        report(f"cold {name}: {N_CONNECTIONS} results bitwise equal to the "
+               f"hot round ({r0.count if r0.kind == 'rows' else 'groups'}"
+               f", shipped {r0.shipped_bytes} B each); read "
+               f"{r0.read_bytes} B = tier_read_bytes, "
+               f"{r0.read_bytes / hot_res[0].read_bytes:.4f} of the hot "
+               f"read")
+        del cold_res, hot_res
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches(kernels)
+    dispatches = node.dispatches - d0
+    report(f"tiered path: {2 * len(pipes)} rounds in {dispatches} "
+           f"dispatches, {run_ms:.3f} ms, launches {launches}, cold rounds "
+           "with no host sync before finalize")
+    if dispatches != 2 * len(pipes) or launches["tier_gather"] != len(pipes):
+        raise AssertionError("tiered path: the cold rounds did not stack "
+                             "into one tier_gather launch each")
+
+    p50 = {f"cold_{k}": v for k, v in verb_p50(
+        fv, node, qps, {k: (cold, p) for k, p in pipes.items()}, report,
+        strict=True).items()}
+    p50.update({f"hot_{k}": v for k, v in verb_p50(
+        fv, node, qps, {k: (hot, p) for k, p in pipes.items()},
+        report).items()})
+    for k in pipes:
+        report(f"p50 {k}: cold {p50[f'cold_{k}']:.3f} ms, hot "
+               f"{p50[f'hot_{k}']:.3f} ms "
+               f"({p50[f'cold_{k}'] / p50[f'hot_{k}']:.3f}x)")
+    profile_rounds(fv, node, qps, {f"cold {k}": (cold, p)
+                                   for k, p in pipes.items()}, report)
+    profile_rounds(fv, node, qps, {"hot selection": (hot, pipes[
+        "selection"])}, report)
+
+    # ---- promotion of a subset, timed; the promoted pages bitwise hot
+    subset = list(range(0, 2 * TIER_PROMOTE, 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    promoted = node.pool.promote_table(cold, page_idx=subset)
+    promote_s = time.perf_counter() - t0
+    idx = torch.tensor(subset, device="cuda")
+    if promoted != len(subset) or word_err(
+            buf[node.pool.pages_of(cold)[idx]], buf[pages[idx]]):
+        raise AssertionError("promoted pages differ from the hot copy's")
+    report(f"promote_table of {promoted} pages: {promote_s:.3f} s on the "
+           f"host; the promoted pages bitwise equal to the hot copy's")
+    t0 = time.perf_counter()
+    rest = node.pool.promote_table(cold, page_idx=range(
+        2 * TIER_PROMOTE, len(cold.pages), 2))
+    bits = node.pool.tier_bits(cold)
+    if not (bits[1::2].all() and not bits[::2].any()):
+        raise AssertionError("the mixed layout is not every other page cold")
+    report(f"promote_table of {rest} more pages: "
+           f"{time.perf_counter() - t0:.3f} s; every other page cold")
+    for name, p in pipes.items():
+        mixed = tiered_round(fv, node, qps, cold, p, strict=True)
+        hot_res = tiered_round(fv, node, qps, hot, p, strict=False)
+        for m_res, h_res in zip(mixed, hot_res):
+            same_result(m_res, h_res, f"mixed {name}")
+        report(f"mixed-tier {name}: bitwise equal to the hot round")
+        del mixed, hot_res
+    for qp in qps:
+        fv.close_connection(qp)
+    entry = {"name": "tier_gather", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/tier_gather.cu",
+             "replaces": "src/repro/kernels/tier.py:51",
+             "launches": None, "max_abs_err": float(err), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+             "library_ms": None, "shape": [b, n, 8],
+             "ms_3_columns": ms3, "bound_ms_3_columns": bound3,
+             "flat_gather_ms": flat4, "flat_gather_b1_ms": flat1,
+             "demote_s": demote_s, "promote_s": promote_s,
+             "effective_capacity": summary["effective_capacity"]}
+    return launches, p50, entry
+
 
 def trace_call(name, fn, report, reps=5):
     """`reps` traced calls after one untraced: a call's wall clock, the
@@ -2122,6 +2463,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import hash_join as hj
     from repro_torch.kernels import ref
     from repro_torch.kernels import select_project as sp
+    from repro_torch.kernels import tier as tg
+    from repro_torch.core import pool as fpool
     # every kernel wrapper's launch counter, by the JSON line's names
     kernels = {"select_project": sp.select_project,
                "ctr_crypt": ctr.ctr_crypt,
@@ -2129,7 +2472,8 @@ def main(argv=None) -> int:
                "group_prep": hg.group_prep,
                "hash_join": hj.hash_join,
                "dfa_match": dfa.dfa_match,
-               "decode_attention": da.decode_attention}
+               "decode_attention": da.decode_attention,
+               "tier_gather": tg.tier_gather}
     # f32 products in full f32 (the defaults, stated): no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2194,15 +2538,22 @@ def main(argv=None) -> int:
     p50.update(regex_p50)
     for qp in qps:
         fv.close_connection(qp)
+    del node, qps
     torch.cuda.empty_cache()
     kv_launches, kv_p50 = far_kv_path(fk, ref, kernels, gen, args.seed,
                                       report)
     p50.update(kv_p50)
+    torch.cuda.empty_cache()
+    check_tier_gather(tg, fpool, fv, args.seed, report)
+    tier_launches, tier_p50, tier_entry = tiered_path(
+        fv, op, tg, fpool, kernels, gen, report)
+    entries.append(tier_entry)
+    p50.update(tier_p50)
     # launches: the counted runs of all paths together
     for e in entries:
         e["launches"] = sum(run[e["name"]] for run in (
             rows_launches, group_launches, join_launches, wide_launches,
-            regex_launches, kv_launches))
+            regex_launches, kv_launches, tier_launches))
     report(f"peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     report(f"p50 ms per verb: {json.dumps(p50)}")
     print(json.dumps({"kernels": entries}))

@@ -13,7 +13,9 @@ join `JoinSmall` (rows kind, its build table read from the node's pool at
 every dispatch), GroupBy and Distinct (groups kind, merged client-side by
 `merge_group_partials`), over word tables of any width; and RegexMatch
 (mask kind) over string tables (`string_table`), whose bytes ride each
-request as `strings=` / `lengths=`.
+request as `strings=` / `lengths=`. Tables demote to the pool's compressed
+cold tier (`node.pool.demote_table`) and every verb runs over them
+unchanged, their cold pages decoded on the device in the dispatch.
 """
 from repro_torch.core.client import (FViewNode, PendingRequest, QPair,
                                      alloc_table_mem, close_connection,
@@ -23,6 +25,6 @@ from repro_torch.core.client import (FViewNode, PendingRequest, QPair,
                                      table_read, table_read_rows,
                                      table_write)
 from repro_torch.core.errors import (DeadlineExceededError, FarviewError,
-                                     NodeDeadError)
+                                     NodeDeadError, PageCodecError)
 from repro_torch.core.pipeline import PipelineResult, compile_pipeline
 from repro_torch.core.table import Column, FTable, string_table

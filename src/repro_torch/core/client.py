@@ -23,6 +23,13 @@ A string table's request carries its bytes (`strings=` / `lengths=`);
 string requests coalesce on (signature, row bucket, width bucket) into one
 stacked `CompiledPipeline.run_strings_batched` round.
 
+Memory tiering: a word table demoted to the pool's cold tier
+(`node.pool.demote_table`) dispatches through the tiered plan, whose
+gather decodes its cold pages on the device in the same dispatch; tiered
+tables ride their own stacks (the tier bit is part of the dispatch key),
+each request billed the physical bytes its gather reads. Every submitted
+verb and plain read counts toward promotion (`FarPool.note_access`).
+
 Dispatch is asynchronous: results are lazy `PipelineResult`s whose
 `finalize()` is the only synchronization point. Read bytes settle at
 dispatch; shipped bytes (data-dependent) settle at finalize; reading a
@@ -44,11 +51,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import operators as op_ir
-from repro_torch.core.errors import DeadlineExceededError, FarviewError, NodeDeadError  # noqa: F401,E501
+from repro_torch.core.errors import DeadlineExceededError, FarviewError, NodeDeadError, PageCodecError  # noqa: F401,E501
 from repro_torch.core.offload import _merge
 from repro_torch.core.pipeline import (PipelineResult, compile_pipeline,
                                       resolve_device)
-from repro_torch.core.pool import PAGE_BYTES, FarPool
+from repro_torch.core.pool import PAGE_BYTES, FarPool, TableTier
 from repro_torch.core.table import Column, FTable, WORD_BYTES
 from repro_torch.kernels import ref as kref
 
@@ -206,14 +213,19 @@ class FViewNode:
 
     `capacity_bytes` sizes the pool in `page_bytes` pages (2 MiB);
     `n_regions` bounds concurrent connections; `n_shards` stripes pool
-    pages across shards; `device=None` means the CUDA card."""
+    pages across shards; `promote_after` / `promote_window` set the cold
+    tier's promotion hysteresis (`FarPool`); `device=None` means the CUDA
+    card."""
 
     def __init__(self, capacity_bytes: int = 64 * 2**20, *, n_regions: int = 6,
                  n_shards: int = 1, node_id: int = 0,
-                 page_bytes: int = PAGE_BYTES, device=None):
+                 page_bytes: int = PAGE_BYTES, promote_after: int = 3,
+                 promote_window: float = 60.0, device=None):
         self.device = resolve_device(device, "FViewNode")
         self.pool = FarPool(capacity_bytes, device=self.device,
-                            page_bytes=page_bytes, n_shards=n_shards)
+                            page_bytes=page_bytes, n_shards=n_shards,
+                            promote_after=promote_after,
+                            promote_window=promote_window)
         self.node_id = node_id
         self.regions = [DynamicRegion(i) for i in range(n_regions)]
         self._qp_counter = itertools.count()
@@ -269,6 +281,11 @@ class FViewNode:
         if strings is not None or ft.str_width:
             strings, lengths = _string_sideband(ft, strings, lengths,
                                                 row_ids)
+        # tiering hysteresis: every submitted verb is an access. Word tables
+        # promote only after `promote_after` hits in the window (a lone cold
+        # scan runs decoded in the dispatch); string tables promote at once
+        # (their dispatch reads the byte sideband: no decode path to stay on)
+        self.pool.note_access(ft)
         req = PendingRequest(qp, ft, pipeline, row_ids=row_ids,
                              lengths=lengths, strings=strings)
         if deadline_s is not None:
@@ -342,7 +359,8 @@ class FViewNode:
         requests bucket on (rows, width); a pre-crypt pins the width
         exactly because the CTR keystream is positional over the
         row-major byte flattening (row padding appends whole rows and
-        never shifts it)."""
+        never shifts it). Tiered word tables ride their own stacks: their
+        plan takes the decode descriptors."""
         sig = op_ir.signature(req.pipeline)
         ids = req.row_ids is not None
         layout = (tuple((c.name, c.dtype) for c in req.ft.columns),
@@ -353,7 +371,8 @@ class FViewNode:
                     else op_ir.pow2_bucket(w))
             return ("str", sig, layout, op_ir.pow2_bucket(n), wkey, ids)
         return ("word", sig, layout, req.ft.row_words,
-                op_ir.pow2_bucket(req.ft.n_rows), ids)
+                op_ir.pow2_bucket(req.ft.n_rows), ids,
+                self.pool.is_tiered(req.ft))
 
     def _resolve_build(self, pipeline: tuple):
         """The node reads the join build table into "on-chip memory"
@@ -377,7 +396,9 @@ class FViewNode:
     def _dispatch(self, reqs: list[PendingRequest]) -> None:
         ft0 = reqs[0].ft
         sig = op_ir.signature(reqs[0].pipeline)
-        pipe = compile_pipeline(ft0, reqs[0].pipeline)
+        # homogeneous by dispatch key: a group is all-tiered or all-flat
+        tiered = reqs[0].strings is None and self.pool.is_tiered(ft0)
+        pipe = compile_pipeline(ft0, reqs[0].pipeline, tiered=tiered)
         for req in reqs:
             region = self.regions[req.qp.region]
             if region.loaded_signature != sig:
@@ -389,12 +410,18 @@ class FViewNode:
                             device=self.device)]
         elif len(reqs) == 1:
             req = reqs[0]
+            tier = pw = phys = None
+            if tiered:
+                tier = self.pool.tier_desc(req.ft)
+                pw = self.pool.page_words
+                phys = self.pool.tier_read_bytes(req.ft, pipe.read_cols)
             results = [pipe.run_pages(self.pool.buf, req.ft.pages,
                                       req.ft.n_rows,
                                       self._resolve_build(req.pipeline),
                                       n_rows=req.ft.n_rows,
                                       row_words=req.ft.row_words,
-                                      row_ids=req.row_ids)]
+                                      row_ids=req.row_ids, tier=tier,
+                                      page_words=pw, read_bytes=phys)]
         elif reqs[0].strings is not None:
             results = self._dispatch_strings_batched(pipe, reqs)
         else:
@@ -421,10 +448,21 @@ class FViewNode:
             row_ids = np.zeros((len(reqs), bucket), np.int64)
             for b, r in enumerate(reqs):
                 row_ids[b, : r.ft.n_rows] = r.row_ids    # tails masked
+        tier = pw = phys = None
+        if pipe.tiered:
+            # each request's decode descriptors, padded to the bucket's
+            # page count with null-descriptor rows (mode RAW over the
+            # pinned null page: reads zeros, masked by n_valid), stacked on
+            # the device from the pool's per-table cache
+            tier = self.pool.tier_desc_stacked([r.ft for r in reqs], n_pages)
+            pw = self.pool.page_words
+            phys = [self.pool.tier_read_bytes(r.ft, pipe.read_cols)
+                    for r in reqs]
         return pipe.run_pages_batched(self.pool.buf, pages, n_valid,
                                       self._resolve_build(reqs[0].pipeline),
                                       n_rows=bucket, row_words=row_words,
-                                      row_ids=row_ids)
+                                      row_ids=row_ids, tier=tier,
+                                      page_words=pw, read_bytes=phys)
 
     def _dispatch_strings_batched(self, pipe, reqs) -> list[PipelineResult]:
         """Stacked string round: each request's bytes zero-padded to the
@@ -504,18 +542,27 @@ def load_node_state(node: FViewNode, buf: np.ndarray,
     `buf` is a pool buffer (`np.asarray(jax_node.pool.buf)` of a reference
     node of the same capacity and page size); each catalog entry is a dict
     with `name`, `columns` (column names), optional `dtypes`, `n_rows`,
-    `pages` and `table_id`. The tables land in the node's catalog with
-    the same placement. Returns them by name."""
-    tables = []
+    optional `str_width`, `pages` and `table_id`, and, for a table with
+    cold pages, `tier`: its tier entry as plain data (`TableTier`'s fields
+    as numpy arrays and ints, `frames` a mapping of cold frame -> the
+    logical pages it holds, `blob` and `blob_len` of a string extent). The
+    tables land in the node's catalog with the same placement and tiers.
+    Returns them by name."""
+    tables, tiers = [], {}
     for ent in catalog:
         dtypes = ent.get("dtypes") or ["f32"] * len(ent["columns"])
-        tables.append(FTable(
+        ft = FTable(
             name=ent["name"],
             columns=tuple(Column(c, d) for c, d in zip(ent["columns"],
                                                        dtypes)),
-            n_rows=int(ent["n_rows"]), table_id=int(ent["table_id"]),
-            pages=tuple(int(p) for p in ent["pages"])))
-    node.pool.adopt(buf, tables)
+            n_rows=int(ent["n_rows"]),
+            str_width=int(ent.get("str_width", 0)),
+            table_id=int(ent["table_id"]),
+            pages=tuple(int(p) for p in ent["pages"]))
+        tables.append(ft)
+        if ent.get("tier") is not None:
+            tiers[ft.table_id] = TableTier.from_arrays(ent["tier"])
+    node.pool.adopt(buf, tables, tiers)
     node.tables = {ft.name: ft for ft in tables}
     return dict(node.tables)
 
@@ -547,10 +594,19 @@ def table_write(qp: QPair, ft: FTable, words) -> None:
 
 
 def table_read(qp: QPair, ft: FTable) -> torch.Tensor:
-    """Plain one-sided read: ships the whole table (no push-down)."""
-    rows = qp.node.pool.read_table(ft)
-    qp._bytes_shipped += ft.n_bytes
-    qp._bytes_read_pool += ft.n_bytes
+    """Plain one-sided read: ships the whole table (no push-down).
+
+    A tiered extent bills its PHYSICAL bytes — the compressed stream is
+    what crosses the wire; the decode (on the device for word pages, the
+    block codec for string extents) rebuilds the logical rows
+    byte-identically. `tier_read_bytes` is `ft.n_bytes` for flat tables.
+    The read counts toward promotion."""
+    pool = qp.node.pool
+    pool.note_access(ft)
+    phys = pool.tier_read_bytes(ft)
+    rows = pool.read_table(ft)
+    qp._bytes_shipped += phys
+    qp._bytes_read_pool += phys
     qp.requests += 1
     return rows
 

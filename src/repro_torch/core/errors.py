@@ -2,13 +2,21 @@
 
 The JAX package defines `NodeDeadError` and `DeadlineExceededError` in
 `core/client.py`; the port keeps every typed error here, below the pool,
-and `core.client` re-exports them.
+and `core.client` re-exports them. `PageCodecError` is raised by the
+tiering codec (`distributed.compress`) and the pool.
 """
 from __future__ import annotations
 
 
 class FarviewError(RuntimeError):
     """Base class for every typed Farview failure."""
+
+
+class PageCodecError(FarviewError):
+    """A compressed page failed validation (corrupt stream, bad checksum,
+    impossible descriptor). Raised INSTEAD of returning wrong bytes — a
+    cold page that cannot be decoded exactly is a loud error, never a
+    silently-wrong result."""
 
 
 class NodeDeadError(FarviewError):

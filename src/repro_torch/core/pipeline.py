@@ -28,6 +28,12 @@ and a JoinSmall pipeline its build as `build=(keys, vals)`):
       (B, P), n_valid (B,). The stack axis B is explicit all the way down:
       every kernel takes it in its grid, with a per-request n_valid; one
       join build serves the whole stack.
+  A tiered plan (`compile_pipeline(..., tiered=True)`) takes, in both
+      page entry points, the pool's decode descriptors as `tier=` (one
+      request's, or a (B, ...) stack) and `page_words=` in place of the
+      page list, and the physical bytes its gather reads as `read_bytes=`;
+      its gather decodes cold pages (`kernels/tier.py`) and the body is
+      the same. A flat plan takes no tier operand.
   pipe(strings, lengths=..., device=...)       one string request
   pipe.run_strings_batched(strings, lengths, n_valid, widths=...)
       stacked string round: strings (B, n, w), lengths (B, n).
@@ -63,6 +69,7 @@ from repro_torch.core.regex import compile_regex
 from repro_torch.core.table import FTable, WORD_BYTES
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import tier as ktier
 from repro_torch.kernels._build import upload as _upload
 from repro_torch.kernels.dfa_match import prepare_dfa
 
@@ -210,8 +217,12 @@ class PipelineResult:
 class CompiledPipeline:
     """The resolved plan of one (schema layout, pipeline signature)."""
 
-    def __init__(self, schema: FTable, pipeline: tuple):
+    def __init__(self, schema: FTable, pipeline: tuple,
+                 tiered: bool = False):
         pipeline = op_ir.validate_pipeline(tuple(pipeline))
+        # tiered plans take the pool's decode descriptors and decode cold
+        # pages in their gather; `tiered` is part of the plan-cache key
+        self.tiered = bool(tiered)
         if (any(isinstance(op, op_ir.JoinSmall) for op in pipeline)
                 and any(isinstance(op, (op_ir.GroupBy, op_ir.Distinct))
                         for op in pipeline)):
@@ -369,27 +380,38 @@ class CompiledPipeline:
         return self._wrap(self._split(payload, 0, n), read_bytes)
 
     def run_pages(self, buf: torch.Tensor, pages, n_valid: int, build=None,
-                  *, n_rows: int, row_words: int,
-                  row_ids=None) -> PipelineResult:
+                  *, n_rows: int, row_words: int, row_ids=None, tier=None,
+                  page_words: int | None = None,
+                  read_bytes: int | None = None) -> PipelineResult:
         """The fused request verb for one request: page gather + pipeline.
 
         buf: pool buffer (n_pages, page_words); pages: (P,) page ids;
         n_valid: rows >= n_valid are masked; build: a JoinSmall
         pipeline's build table; row_ids: optional (n_rows,) original-table
-        row indices."""
-        pages = _upload(pages, torch.int64, buf.device)
+        row indices. On a tiered plan, `tier` is the pool's descriptor
+        tuple (`FarPool.tier_desc`) and `page_words` the frame width;
+        `read_bytes` overrides the logical read accounting with the
+        physical (compressed) bytes the tiered gather pulls."""
+        tier = self._as_tier(tier)
         nv = torch.full((1,), int(n_valid), dtype=torch.int32,
                         device=buf.device)
-        payload = self._gather_run(buf, pages[None], nv,
-                                   self._as_ids(row_ids, buf.device, 1),
-                                   self._as_build(build, buf.device),
-                                   n_rows, row_words)
+        payload = self._gather_run(
+            buf, None if tier is not None else
+            _upload(pages, torch.int64, buf.device)[None], nv,
+            self._as_ids(row_ids, buf.device, 1),
+            self._as_build(build, buf.device), n_rows, row_words,
+            None if tier is None else tuple(t[None] for t in tier),
+            page_words)
         return self._wrap(self._split(payload, 0, n_rows),
-                          self._pages_read_bytes(n_rows, row_words))
+                          self._pages_read_bytes(n_rows, row_words)
+                          if read_bytes is None else read_bytes)
 
     def run_pages_batched(self, buf: torch.Tensor, pages, n_valid,
                           build=None, *, n_rows: int, row_words: int,
-                          row_ids=None) -> list[PipelineResult]:
+                          row_ids=None, tier=None,
+                          page_words: int | None = None,
+                          read_bytes: list[int] | None = None
+                          ) -> list[PipelineResult]:
         """Stacked multi-client dispatch: pages (B, P), n_valid (B,) host ints.
 
         One pass over the whole stack serves the scheduling round; the
@@ -399,16 +421,23 @@ class CompiledPipeline:
         lists padded with the pool null page and their tails masked by
         `n_valid`. Read bytes bill each request's own rows; shipped bytes
         come from device counts that already exclude masked rows; each
-        request's rows are sliced back to its own length."""
-        pages = _upload(pages, torch.int64, buf.device)
+        request's rows are sliced back to its own length. A tiered plan
+        takes the stacked descriptors `tier` (each field (B, P[, C])),
+        `page_words` and per-request physical `read_bytes`."""
+        tier = self._as_tier(tier)
         nv = np.asarray(n_valid, np.int64)
-        b = int(pages.shape[0])
+        b = int(nv.shape[0])
+        if tier is None:
+            pages = _upload(pages, torch.int64, buf.device)
         payload = self._gather_run(
-            buf, pages, _upload(nv, torch.int32, buf.device),
+            buf, None if tier is not None else pages,
+            _upload(nv, torch.int32, buf.device),
             self._as_ids(row_ids, buf.device, b),
-            self._as_build(build, buf.device), n_rows, row_words)
+            self._as_build(build, buf.device), n_rows, row_words, tier,
+            page_words)
         return [self._wrap(self._split(payload, i, int(nv[i])),
-                           self._pages_read_bytes(int(nv[i]), row_words))
+                           self._pages_read_bytes(int(nv[i]), row_words)
+                           if read_bytes is None else int(read_bytes[i]))
                 for i in range(b)]
 
     def run_strings_batched(self, strings, lengths, n_valid, *,
@@ -498,6 +527,19 @@ class CompiledPipeline:
                     _UNIQUE_BUILDS.add(key)
         return keys, vals
 
+    def _as_tier(self, tier):
+        if (tier is None) == self.tiered:
+            raise ValueError("tiered pipelines take a tier descriptor "
+                             "operand; flat pipelines take none")
+        return tier
+
+    @property
+    def read_cols(self) -> tuple[int, ...] | None:
+        """Column indices a column-granular gather touches, or None when
+        the plan reads full rows — what the tiered dispatch passes to
+        `FarPool.tier_read_bytes` so physical billing matches the gather."""
+        return tuple(self.proj_cols) if self._columnar_read() else None
+
     def _columnar_read(self) -> bool:
         """True when the plan gathers column-granular (a pre-decrypt forces
         full-row reads: the CTR keystream is positional over the row)."""
@@ -519,17 +561,28 @@ class CompiledPipeline:
                               _meta=meta)
 
     def _gather_run(self, buf, pages, n_valid, row_ids, build, n_rows,
-                    row_words):
+                    row_words, tier=None, page_words=None):
+        """The pool read of a (B, ...) stack, then the body: the page
+        gather, or on a tiered plan the descriptors' decode (cold pages
+        unpacked, raw pages read as they are)."""
         if self.kind == "mask":
             raise ValueError("a string table's bytes ride its request, not "
                              "the pool: call the pipeline with lengths= or "
                              "run_strings_batched")
         if self._columnar_read():
-            work = fpool.gather_columns(
-                buf, pages, n_rows, row_words,
-                _upload(self.proj_cols, torch.int64, buf.device))
+            if tier is not None:
+                work = ktier.gather_columns_tiered(
+                    buf, tier, n_rows, row_words, self.proj_cols, page_words)
+            else:
+                work = fpool.gather_columns(
+                    buf, pages, n_rows, row_words,
+                    _upload(self.proj_cols, torch.int64, buf.device))
             return self._body(work, n_valid, row_ids, build, narrowed=True)
-        rows = fpool.gather_rows(buf, pages, n_rows, row_words)
+        if tier is not None:
+            rows = ktier.gather_rows_tiered(buf, tier, n_rows, row_words,
+                                            page_words)
+        else:
+            rows = fpool.gather_rows(buf, pages, n_rows, row_words)
         return self._body(rows, n_valid, row_ids, build, narrowed=False)
 
     def _body(self, work: torch.Tensor, n_valid: torch.Tensor,
@@ -690,21 +743,24 @@ _CACHE: dict = {}                # guarded-by: _CACHE_LOCK
 _CACHE_LOCK = threading.Lock()
 
 
-def compile_pipeline(schema: FTable, pipeline: tuple) -> CompiledPipeline:
-    """Fetch (or build) the plan for (schema layout, signature).
+def compile_pipeline(schema: FTable, pipeline: tuple, *,
+                     tiered: bool = False) -> CompiledPipeline:
+    """Fetch (or build) the plan for (schema layout, signature, tier).
 
     The key deliberately excludes the table *name*: two clients running the
     same pipeline over same-layout tables share one plan, which is what lets
     the node's scheduler coalesce them into a stacked dispatch. The key
     mirrors the reference's (`repro/core/pipeline.py` compile_pipeline)
-    minus its lowering and tier fields, which the port does not have."""
+    minus its lowering field, which the port does not have. `tiered=True`
+    keys a separate plan whose gather takes the pool's decode descriptors
+    and decodes cold pages in the dispatch."""
     pipeline = op_ir.validate_pipeline(tuple(pipeline))
     key = (tuple((c.name, c.dtype) for c in schema.columns),
-           bool(schema.str_width), op_ir.signature(pipeline))
+           bool(schema.str_width), op_ir.signature(pipeline), bool(tiered))
     with _CACHE_LOCK:
         pipe = _CACHE.get(key)
         if pipe is None:
-            pipe = _CACHE[key] = CompiledPipeline(schema, pipeline)
+            pipe = _CACHE[key] = CompiledPipeline(schema, pipeline, tiered)
     return pipe
 
 

@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("select_project.cu", "ctr_crypt.cu", "hash_group.cu",
-           "hash_join.cu", "dfa_match.cu", "decode_attention.cu")
+           "hash_join.cu", "dfa_match.cu", "decode_attention.cu",
+           "tier_gather.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -81,6 +82,11 @@ _SIGNATURES = {
         "da_split_rows": ([_I, _I, _I], _I),
         "da_group_chunk": ([], _I),
         "da_error_string": ([_I], ctypes.c_char_p),
+    },
+    "tier_gather.cu": {
+        "tier_gather": ([_P, _LL, _I] + [_P] * 6
+                        + [_LL, _I, _P, _I, _LL, _I, _P, _P], _I),
+        "tg_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

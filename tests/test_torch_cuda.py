@@ -20,7 +20,13 @@ and stacked string rounds flushed without a host sync; the far-KV
 decode_attention kernel at chip_smoke's shapes (granite-3-8b's block, G =
 1 and 8, D = 64 and 256, G past a block's 32 query rows, rows whose bytes
 take scalar loads), lengths 0, 1, ragged and full, f32 and bf16 caches,
-and far-KV decode steps flushed without a host sync.
+and far-KV decode steps flushed without a host sync; the tiered gather
+(`tier_gather`) over random descriptors (widths 0..33, straddling and
+out-of-range offsets) and over a pool's real cold frames (plane widths
+1..32, delta and dictionary planes, 3, 5, 7 and 8 columns, mixed raw and
+cold pages, null-descriptor padding, NaN and subnormal payloads), B = 1
+and 4, one request alone against the same request stacked, and a tiered
+round flushed without a host sync.
 """
 import numpy as np
 import pytest
@@ -29,6 +35,7 @@ import torch
 import repro_torch as fv
 from repro_torch.core import operators as op
 from repro_torch.core.pipeline import _DROP_KEY
+from repro_torch.core.pool import FarPool as TFarPool
 from repro_torch.core import far_kv as tfk
 from repro_torch.kernels import ctr_crypt as tctr
 from repro_torch.kernels import _build
@@ -37,6 +44,7 @@ from repro_torch.kernels import dfa_match as tdfa
 from repro_torch.kernels import hash_group as thg
 from repro_torch.kernels import hash_join as thj
 from repro_torch.kernels import select_project as tsp
+from repro_torch.kernels import tier as ttier
 
 pytestmark = pytest.mark.cuda
 
@@ -994,3 +1002,185 @@ def test_decode_steps_on_the_card_match_the_cpu(card):
     for (mode, _), outs in got.items():
         for a, b in zip(outs, got["far", "cpu"]):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ tier_gather
+TG_PAGE = 4096
+TG_PW = TG_PAGE // 4
+
+
+def _tg_random(seed, b, p, c, n_frames=6):
+    """A random word buffer and random descriptors: every mode, widths
+    0..33, bit offsets straddling words and running off both ends of the
+    frame, dictionary offsets outside it, bases across the u32 range."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 2**32, (n_frames, TG_PW), dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    desc = (rng.integers(0, n_frames, (b, p)).astype(np.int32),
+            rng.integers(0, 3, (b, p, c)).astype(np.int32),
+            rng.integers(0, 34, (b, p, c)).astype(np.int32),
+            rng.integers(0, 2**32, (b, p, c), dtype=np.uint64).astype(
+                np.uint32),
+            rng.integers(-8, TG_PW + 8, (b, p, c)).astype(np.int32),
+            rng.integers(-64, TG_PW * 32 + 64, (b, p, c)).astype(np.int32))
+    return buf, desc
+
+
+def _tg_both(card, buf, desc, n, c, cols):
+    tbuf = torch.from_numpy(np.ascontiguousarray(buf).view(np.int32).copy()
+                            ).to(card).view(torch.float32)
+    tier = ttier.tier_tensors(desc, card)
+    before = ttier.tier_gather.launches
+    got = ttier.tier_gather(tbuf, tier, n, c, cols, TG_PW)
+    exp = ttier.tier_gather_plain(tbuf, tier, n, c, cols, TG_PW)
+    torch.cuda.synchronize()
+    assert ttier.tier_gather.launches == before + 1
+    return got, exp
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("c", [3, 5, 7, 8])
+def test_tier_gather_kernel_matches_plain_on_random_descriptors(card, c, b):
+    buf, desc = _tg_random(10 * c + b, b, 3, c)
+    n = 3 * TG_PW // c
+    for cols in (None, [c - 1, 0, c - 1], [c // 2]):
+        got, exp = _tg_both(card, buf, desc, n, c, cols)
+        assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+def _tg_words(rng, n, c):
+    """Words whose column planes need every packed width 1..32 (column j
+    spans [0, 2^(j % 32 + 1))), some dictionary-friendly columns, and NaN
+    payloads, inf, -0.0 and subnormals scattered in every third column."""
+    u = np.zeros((n, c), np.uint64)
+    for j in range(c):
+        w = j % 32 + 1
+        if j % 5 == 4:
+            u[:, j] = rng.integers(0, 2**32, 7, dtype=np.uint64)[
+                rng.integers(0, 7, n)]
+        else:
+            u[:, j] = rng.integers(0, 2**w, n, dtype=np.uint64)
+            u[0, j] = 2**w - 1
+    u = u.astype(np.uint32)
+    specials = u[:, ::3]                # every third column: a dict plane
+    flat = specials.reshape(-1)
+    for v in (0x7FC0BEEF, 0xFFC00001, 0x7F800000, 0x80000000, 0x00000005,
+              0x807FFFFF):
+        flat[rng.integers(0, flat.size, max(1, flat.size // 200))] = v
+    u[:, ::3] = flat.reshape(specials.shape)
+    return u.view(np.float32)
+
+
+@pytest.mark.parametrize("c", [3, 5, 7, 8, 32])
+def test_tier_gather_kernel_matches_plain_on_pool_frames(card, c):
+    """A table demoted in place on the card (every other page cold):
+    the kernel equals the plain version and the written words, rows and
+    columns, alone and in a stack with null-descriptor padding."""
+    rng = np.random.default_rng(c)
+    n = 2500 if c < 32 else 700
+    words = _tg_words(rng, n, c)
+    pool = TFarPool(8 * 2**20, page_bytes=TG_PAGE, device=card)
+    ft = pool.alloc_table(fv.FTable(
+        "t", tuple(fv.Column(f"c{i}") for i in range(c)), n_rows=n))
+    pool.write_table(ft, words)
+    p_n = len(ft.pages)
+    assert pool.demote_table(ft, page_idx=range(0, p_n, 2)) > 0
+    te = pool._tier[ft.table_id]
+    assert te.cold.any() and not te.cold.all()
+    widths = set(te.width[te.cold].reshape(-1).tolist())
+    modes = set(te.mode[te.cold].reshape(-1).tolist())
+    assert {1, 2} <= modes and (c < 32 or len(widths) >= 20)
+    pad = p_n + 2
+    desc = pool.tier_desc_padded(ft, pad)
+    stack = tuple(np.stack([a, b]) for a, b in zip(
+        ttier.null_descriptor(pad, c, pool.null_page), desc))
+    buf = pool.buf.cpu().numpy()
+    rows = pad * TG_PW // c
+    for d in (desc, stack):
+        for cols in (None, [c - 1, 0]):
+            got, exp = _tg_both(card, buf, d, rows, c, cols)
+            assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    got, _ = _tg_both(card, buf, desc, n, c, None)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  words.view(np.uint32))
+    stacked, _ = _tg_both(card, buf, stack, n, c, None)
+    assert torch.equal(stacked[1].view(torch.int32), got.view(torch.int32))
+    assert not stacked[0].view(torch.int32).any()
+
+
+def test_tier_gather_refuses_what_it_does_not_take(card):
+    buf, desc = _tg_random(1, 1, 2, 4)
+    tier = ttier.tier_tensors(desc, card)
+    tbuf = torch.from_numpy(buf.view(np.int32).copy()).to(card).view(
+        torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttier.tier_gather(tbuf.cpu(), ttier.tier_tensors(desc, "cpu"), 4, 4,
+                          None, TG_PW)
+    with pytest.raises(ValueError, match="device"):
+        ttier.tier_gather(tbuf, ttier.tier_tensors(desc, "cpu"), 4, 4, None,
+                          TG_PW)
+    with pytest.raises(ValueError, match="overrun"):
+        ttier.tier_gather(tbuf, tier, 2 * TG_PW, 4, None, TG_PW)
+    with pytest.raises(ValueError, match="outside"):
+        ttier.tier_gather(tbuf, tier, 4, 4, [4], TG_PW)
+
+
+def test_tiered_round_never_waits_and_matches_the_cpu(card):
+    """Cold and mixed-tier tables on the card, a stacked round of each
+    verb flushed under sync debug mode "error", against the same round on
+    a CPU node: rows, counts and bytes bitwise."""
+    rng = np.random.default_rng(7)
+    n = 3000
+    cols = tuple(fv.Column(f"c{i}", "i32" if i == 0 else "f32")
+                 for i in range(8))
+    words = np.concatenate([rng.integers(0, 64, (n, 1)),
+                            rng.integers(0, 128, (n, 7))], 1).astype(
+                                np.float32)
+    pipes = {
+        "sel": (op.Select((op.Predicate("c1", "<", 64.0),
+                           op.Predicate("c2", ">", 16.0))),),
+        "proj": (op.Project(("c0", "c3", "c5")),),
+        "smart": (op.SmartAddress(("c2", "c6", "c7")),),
+        "grp": (op.GroupBy("c0", ("c1", "c2"), n_buckets=64),),
+        "post": (op.Select((op.Predicate("c1", "<", 64.0),)),
+                 op.Crypt((5, 6), 7, "post")),
+    }
+    out = {}
+    for dev in (card, "cpu"):
+        node = fv.FViewNode(16 * 2**20, page_bytes=TG_PAGE, n_regions=4,
+                            promote_after=10**9, device=dev)
+        qps = [fv.open_connection(node) for _ in range(4)]
+        fts = []
+        for i, qp in enumerate(qps):
+            ft = fv.alloc_table_mem(qp, fv.FTable(f"t{i}", cols,
+                                                  n_rows=n - 300 * i))
+            fv.table_write(qp, ft, words[: n - 300 * i])
+            node.pool.demote_table(ft, page_idx=None if i % 2 == 0
+                                   else range(0, len(ft.pages), 2))
+            fts.append(ft)
+        before = ttier.tier_gather.launches
+        if dev is card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            reqs = {k: [fv.submit_request(qp, ft, p)
+                        for qp, ft in zip(qps, fts)]
+                    for k, p in pipes.items()}
+            node.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if dev is card:
+            assert ttier.tier_gather.launches == before + len(pipes)
+        out[dev if dev == "cpu" else "cuda"] = {
+            k: [r.wait() for r in rs] for k, rs in reqs.items()}
+    for k in pipes:
+        for r, c in zip(out["cuda"][k], out["cpu"][k]):
+            assert r.read_bytes == c.read_bytes
+            assert r.shipped_bytes == c.shipped_bytes
+            if r.kind == "groups":
+                for f in ("bucket_keys", "count", "sum", "min", "max"):
+                    assert torch.equal(r.groups[f].cpu(), c.groups[f])
+                continue
+            assert r.count == c.count
+            assert torch.equal(r.rows.cpu().view(torch.int32),
+                               c.rows.view(torch.int32))

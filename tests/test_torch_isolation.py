@@ -3,9 +3,12 @@ neither jax nor anything of the JAX package `repro`.
 
 Two checks: a subprocess imports `repro_torch`, runs a selection, a
 join, a GroupBy request (merged client-side), a RegexMatch over a
-string table and a far-KV decode step on the CPU and then finds no `jax`
-and no `repro` module loaded; an AST scan of
-every port file (and of `chip_smoke.py`) finds no such import statement.
+string table, a far-KV decode step and a selection over a table demoted
+to the cold tier (the page codec of `repro_torch/distributed/` and the
+tiered gather of `kernels/tier.py`) on the CPU and then finds no `jax`
+and no `repro` module loaded, and the tiering modules loaded; an AST scan
+of every port file (`distributed/` and `kernels/tier.py` among them) and
+of `chip_smoke.py` finds no such import statement.
 """
 import ast
 import os
@@ -59,6 +62,16 @@ out, _, _ = far_kv.attend_block(torch.ones((1, 8)), w, kc, vc, 3,
                                 torch.tensor([3]), n_q_heads=4,
                                 n_kv_heads=2, head_dim=2)
 assert out.shape == (1, 8), out.shape
+cold = fv.alloc_table_mem(qp, fv.FTable("cold", (fv.Column("a"),
+                                                 fv.Column("b")), n_rows=64))
+fv.table_write(qp, cold, np.arange(128, dtype=np.float32).reshape(64, 2))
+assert node.pool.demote_table(cold) == 1
+res = fv.farview_request(qp, cold, (op.Select((op.Predicate("a", "<",
+                                                            20.0),)),))
+assert res.count == 10 and node.pool.is_tiered(cold), res.count
+assert res.read_bytes < cold.n_bytes, res.read_bytes
+for mod in ("repro_torch.distributed.compress", "repro_torch.kernels.tier"):
+    assert mod in sys.modules, mod
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -89,3 +102,11 @@ def _imported_roots(path: Path) -> set[str]:
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_file_imports_no_jax_and_no_repro(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+def test_scan_covers_every_port_subpackage():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for path in ("src/repro_torch/distributed/compress.py",
+                 "src/repro_torch/kernels/tier.py",
+                 "src/repro_torch/core/pool.py", "chip_smoke.py"):
+        assert path in scanned, path
