@@ -2271,22 +2271,39 @@ def tiered_path(fv, op, tg, fpool, kernels, gen, report):
     out_bytes, out3 = b * n * 8 * 4, b * n * 3 * 4
     bound = (read + out_bytes) / HBM_BYTES_PER_S * 1e3
     bound3 = (read3 + out3) / HBM_BYTES_PER_S * 1e3
-    # the flat page gather beside it: B=4 requests over one table (as the
-    # rows path stacks them) and one request
+    # the flat page gather beside it (torch indexing, as the rows path runs
+    # it, CUDA events): requests over one table, their page lists stacked
+    # contiguous (B, P) as the scheduler stacks them; the same with request
+    # b's list rotated by b/4 of the table; three requests over three
+    # disjoint page sets of the pool (no page read twice) against three
+    # over one table; one request
     pages = node.pool.pages_of(hot)
-    flat4 = cuda_ms(lambda: fpool.gather_rows(buf, pages.expand(b, -1), n,
-                                              8))
-    flat1 = cuda_ms(lambda: fpool.gather_rows(buf, pages[None], n, 8))
+    p_n = pages.shape[0]
+    others = torch.tensor(sorted(set(range(node.pool.n_pages))
+                                 - set(hot.pages))[: 2 * p_n],
+                          device="cuda")
+    variants = {"same": pages.expand(b, -1).contiguous(),
+                "rotated": torch.stack([pages.roll(i * p_n // b)
+                                        for i in range(b)]),
+                "same3": pages.expand(3, -1).contiguous(),
+                "disjoint3": torch.cat([pages[None],
+                                        others.view(2, p_n)]),
+                "one": pages[None]}
+    flat = {name: cuda_ms(lambda pg=pg: fpool.gather_rows(buf, pg, n, 8))
+            for name, pg in variants.items()}
+    page_bytes = out_bytes // b
     report(f"tier_gather rows {ms:.3f} ms (bound {bound:.3f} ms: reads "
            f"{read} B of planes and dictionaries, writes {out_bytes} B; "
            f"{100 * bound / ms:.1f}% of it, "
            f"{(read + out_bytes) / ms / 1e6:.1f} GB/s); 3 columns "
            f"{ms3:.3f} ms (bound {bound3:.3f} ms: reads {read3} B, writes "
            f"{out3} B); plain version {plain_ms:.3f} ms (in row chunks)")
-    report(f"flat page gather (torch indexing) of the hot copy: B={b} "
-           f"{flat4:.3f} ms (reads {out_bytes} B, writes {out_bytes} B: "
-           f"{2 * out_bytes / flat4 / 1e6:.1f} GB/s), B=1 {flat1:.3f} ms "
-           f"({2 * out_bytes // b / flat1 / 1e6:.1f} GB/s)")
+    report("flat page gather (torch indexing), CUDA events, each request "
+           f"reading {page_bytes} B as indexed and writing {page_bytes} B: "
+           + "; ".join(f"{k} {v:.3f} ms ({variants[k].shape[0]} requests, "
+                       f"{2 * page_bytes * variants[k].shape[0] / v / 1e6:.1f}"
+                       " GB/s as indexed)" for k, v in flat.items()))
+    flat4, flat1 = flat["same"], flat["one"]
     del tier4
 
     sel = op.Select((op.Predicate("c1", "<", 64.0),
@@ -2389,6 +2406,9 @@ def tiered_path(fv, op, tg, fpool, kernels, gen, report):
              "library_ms": None, "shape": [b, n, 8],
              "ms_3_columns": ms3, "bound_ms_3_columns": bound3,
              "flat_gather_ms": flat4, "flat_gather_b1_ms": flat1,
+             "flat_gather_rotated_ms": flat["rotated"],
+             "flat_gather_b3_ms": flat["same3"],
+             "flat_gather_b3_disjoint_ms": flat["disjoint3"],
              "demote_s": demote_s, "promote_s": promote_s,
              "effective_capacity": summary["effective_capacity"]}
     return launches, p50, entry

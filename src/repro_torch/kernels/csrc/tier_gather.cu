@@ -10,157 +10,142 @@
 //
 // For each request b of the stack and each output word (row r, column
 // cols[i]) at logical word g = r * C + cols[i] of the table: page p =
-// g / page_words, word kk = g % page_words, column plane c = g % C, and
-// the page's descriptor row (phys, mode, width, base, dictoff, bitoff) of
-// request b. MODE_RAW reads the word itself from page phys; a packed
-// plane extracts its `width`-bit value at bit bitoff + j * width of frame
-// phys (j: the word's rank in its plane) from a two-word straddle read,
-// then adds the plane's base (MODE_DELTA, wrapping) or looks it up in the
-// frame's dictionary (MODE_DICT). Words are moved as uint32: no float
-// arithmetic touches them, so NaN payloads and subnormals survive.
+// g / page_words, word kk = g % page_words, column plane c = g % C (that
+// is cols[i]), and the page's descriptor row (phys, mode, width, base,
+// dictoff, bitoff) of request b. MODE_RAW reads the word itself from page
+// phys; a packed plane extracts its `width`-bit value at bit bitoff + j *
+// width of frame phys (j: the word's rank in its plane) from a two-word
+// straddle read, then adds the plane's base (MODE_DELTA, wrapping) or
+// looks it up in the frame's dictionary (MODE_DICT). Words are moved as
+// uint32: no float arithmetic touches them, so NaN payloads and subnormals
+// survive.
 //
 // What the reference defines that C does not, kept as the reference has
 // it: a shift by 32 or more (`hi << (32 - sh)` at sh == 0, `0xFFFFFFFF >>
-// (32 - w)` at w outside 1..32) gives 0 in XLA, and is guarded here; Python's
-// `%` is never negative, C's can be, so the plane phase is wrapped into
-// [0, C) by hand (pages start mid-row when C does not divide page_words);
-// the clamps of the straddle index to [0, page_words - 2] and of the
+// (32 - w)` at w outside 1..32) gives 0 in XLA, and is guarded here; the
+// clamps of the straddle index to [0, page_words - 2] and of the
 // dictionary index to [0, page_words - 1] are the reference's, with its
-// int32 wrap of the bit offset and of the dictionary index. The packed
-// candidate is computed for every lane, as the reference computes it; the
-// raw word and the dictionary word are read only where the mode selects
-// them (the value the reference selects is the same, and a cold lane does
-// not stream its frame's raw words).
+// int32 wrap of the bit offset and of the dictionary index. The rank j is
+// the reference's (kk - (c - phase) % C) // C with Python's non-negative
+// `%`, phase = (p * page_words) % C: pages start mid-row when C does not
+// divide page_words. Over the rows of one page that is r - first(c), with
+// first(c) = ceil((p * page_words - c) / C) the first row whose column-c
+// word lies in page p (both count the column-c words of the page before
+// row r), so the kernel takes the difference and C's signed `%` never
+// enters. The packed candidate is computed for every lane, as the
+// reference computes it; the raw word and the dictionary word are read
+// only where the mode selects them (the value the reference selects is
+// the same, and a cold lane does not stream its frame's raw words).
 //
-// One thread per output word, grid-stride within a request, the stack
-// axis B on the grid's y axis; descriptors through the read-only cache.
-// Per-request word indices run in 32 bits (tables under 16 GiB, twice the
-// reference's int32 range) or, past that, in 64 bits; addresses are 64-bit.
-// Divisions by the run-time divisors (k, page_words, C) use
-// multiply-high reciprocals computed once on the host (Granlund and
-// Montgomery, 1994), exact for every index of their width.
+// One block per (page, request): it stages the page's descriptor row for
+// up to kChunk output columns in shared memory, with each column's
+// first(c), then walks the page's output words (the rows that touch the
+// page, times the columns) with neighbouring threads on neighbouring
+// output words, each decoding the words whose logical word lies in its
+// page (a row that straddles two pages is written by both blocks, each
+// its own words). So no per-word division and no per-word descriptor
+// load from device memory. Indices and addresses are 64-bit.
 //
 // Bound on the card: bytes. The output words are written once and the
 // packed planes and dictionaries (or a raw page's words) read once, over
-// 3.35 TB/s of HBM. The design keeps the writes coalesced (neighbouring
-// threads, neighbouring output words), keeps the index arithmetic to
-// multiplies and shifts, and takes no shared memory; making it faster is
-// later work.
+// 3.35 TB/s of HBM.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kChunk = 512;        // output columns staged at a time
 constexpr int kModeRaw = 0;
 constexpr int kModeDict = 2;
 
-// n / d for every n of the type: t = mulhi(n, m), q = (t + (n - t) / 2)
-// >> (l - 1) with l = ceil(log2 d), m = floor(2^N (2^l - d) / d) + 1.
-struct Div32 {
-  uint32_t m;
-  int l;
-  __device__ __forceinline__ uint32_t operator()(uint32_t n) const {
-    if (l == 0) return n;
-    const uint32_t t = __umulhi(n, m);
-    return (t + ((n - t) >> 1)) >> (l - 1);
-  }
-};
-
-struct Div64 {
-  unsigned long long m;
-  int l;
-  __device__ __forceinline__ unsigned long long operator()(
-      unsigned long long n) const {
-    if (l == 0) return n;
-    const unsigned long long t = __umul64hi(n, m);
-    return (t + ((n - t) >> 1)) >> (l - 1);
-  }
-};
-
-int ceil_log2(unsigned long long d) {
-  int l = 0;
-  while (l < 64 && (1ULL << l) < d) ++l;
-  return l;
-}
-
-Div32 make_div32(uint32_t d) {
-  Div32 v;
-  v.l = ceil_log2(d);
-  const unsigned long long span = (1ULL << v.l) - d;
-  v.m = (uint32_t)(((span << 32) / d) + 1);
-  return v;
-}
-
-Div64 make_div64(unsigned long long d) {
-  Div64 v;
-  v.l = ceil_log2(d);
-  const unsigned __int128 one = 1;
-  const unsigned __int128 span = (one << v.l) - d;
-  v.m = (unsigned long long)(((span << 64) / d) + 1);
-  return v;
-}
-
-template <typename Idx, typename Div>
 __global__ void __launch_bounds__(kThreads)
 tier_gather_kernel(const uint32_t* __restrict__ buf, long long buf_pages,
-                   const int* __restrict__ phys, const int* __restrict__ mode,
+                   long long pw, const int* __restrict__ phys,
+                   const int* __restrict__ mode,
                    const int* __restrict__ width,
                    const uint32_t* __restrict__ base,
                    const int* __restrict__ dictoff,
-                   const int* __restrict__ bitoff, long long P,
-                   const int* __restrict__ cols, Idx pw, Idx C, Idx k,
-                   Div div_k, Div div_pw, Div div_c, long long lanes,
+                   const int* __restrict__ bitoff, long long P, long long C,
+                   const int* __restrict__ cols, int k, long long n_rows,
                    uint32_t* __restrict__ out) {
+  __shared__ int s_col[kChunk], s_mode[kChunk], s_width[kChunk];
+  __shared__ int s_dictoff[kChunk], s_bitoff[kChunk];
+  __shared__ uint32_t s_base[kChunk];
+  __shared__ long long s_first[kChunk];
+  const long long p = blockIdx.x;
   const long long b = blockIdx.y;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
-       o < lanes; o += stride) {
-    const Idx lane = (Idx)o;
-    const Idx r = div_k(lane);
-    const Idx i = lane - r * k;
-    const Idx col = cols == nullptr ? i : (Idx)__ldg(cols + i);
-    const Idx g = r * C + col;                   // logical word
-    const Idx p = div_pw(g);                     // logical page
-    const Idx kk = g - p * pw;                   // word within the page
-    const Idx c = col;                           // g % C: r * C is a multiple
-    const long long drow = b * P + (long long)p;
-    long long frame = __ldg(phys + drow);
-    // a descriptor names a page of the buffer; clamp so a corrupt one
-    // cannot read outside it
-    frame = frame < 0 ? 0 : (frame >= buf_pages ? buf_pages - 1 : frame);
-    const uint32_t* page = buf + frame * (long long)pw;
-    const long long d = drow * (long long)C + (long long)c;
-    const int m = __ldg(mode + d);
-    const int w = __ldg(width + d);
+  const long long words = n_rows * C;
+  const long long pstart = p * pw;
+  const long long pend = pstart + pw < words ? pstart + pw : words;
+  if (pstart >= pend) return;
+  const long long r_lo = pstart / C;
+  const long long r_hi = (pend - 1) / C;
+  const long long R = r_hi - r_lo + 1;
+  const long long drow = b * P + p;
+  long long frame = __ldg(phys + drow);
+  // a descriptor names a page of the buffer; clamp so a corrupt one
+  // cannot read outside it
+  frame = frame < 0 ? 0 : (frame >= buf_pages ? buf_pages - 1 : frame);
+  const uint32_t* page = buf + frame * pw;
+  uint32_t* out_b = out + b * n_rows * (long long)k;
 
-    // packed candidate: rank j of this word within its (page, column)
-    // plane, phase = the column of the page's word 0
-    const Idx first = p * pw;
-    const Idx phase = first - div_c(first) * C;
-    const Idx x = c >= phase ? c - phase : c + C - phase;   // (c-phase) % C
-    const Idx j = div_c(kk - x);                 // kk - x >= 0: x == kk % C
-    const int bit = (int)((uint32_t)__ldg(bitoff + d) + (uint32_t)j *
-                                                           (uint32_t)w);
-    long long wi = bit >> 5;
-    wi = wi < 0 ? 0 : (wi > (long long)pw - 2 ? (long long)pw - 2 : wi);
-    const uint32_t sh = (uint32_t)bit & 31u;
-    const uint32_t lo = __ldg(page + wi);
-    const uint32_t hi = __ldg(page + wi + 1);
-    uint32_t packed = (lo >> sh) | (sh == 0 ? 0u : hi << (32u - sh));
-    packed &= (w >= 1 && w <= 32) ? (0xFFFFFFFFu >> (32 - w)) : 0u;
-
-    uint32_t v;
-    if (m == kModeRaw) {
-      v = __ldg(page + kk);
-    } else if (m == kModeDict) {
-      long long di = (int)((uint32_t)__ldg(dictoff + d) + packed);
-      di = di < 0 ? 0 : (di > (long long)pw - 1 ? (long long)pw - 1 : di);
-      v = __ldg(page + di);
-    } else {
-      v = packed + __ldg(base + d);              // wrap-around delta
+  for (int i0 = 0; i0 < k; i0 += kChunk) {
+    const int kc = k - i0 < kChunk ? k - i0 : kChunk;
+    __syncthreads();
+    for (int t = threadIdx.x; t < kc; t += kThreads) {
+      const int col = cols == nullptr ? i0 + t : __ldg(cols + i0 + t);
+      const long long d = drow * C + col;
+      s_col[t] = col;
+      s_mode[t] = __ldg(mode + d);
+      s_width[t] = __ldg(width + d);
+      s_base[t] = __ldg(base + d);
+      s_dictoff[t] = __ldg(dictoff + d);
+      s_bitoff[t] = __ldg(bitoff + d);
+      s_first[t] = (pstart - col + C - 1) / C;   // ceil((pstart - col) / C)
     }
-    out[b * lanes + o] = v;
+    __syncthreads();
+    const long long total = R * kc;
+    const long long step_r = kThreads / kc;
+    const int step_i = kThreads % kc;
+    long long rl = threadIdx.x / kc;
+    int ii = threadIdx.x % kc;
+    for (long long t = threadIdx.x; t < total; t += kThreads) {
+      const long long r = r_lo + rl;
+      const long long g = r * C + s_col[ii];
+      if (g >= pstart && g < pend) {
+        const long long kk = g - pstart;
+        const int m = s_mode[ii];
+        const int w = s_width[ii];
+        // packed candidate, with the reference's int32 wrap and clamp
+        const uint32_t j = (uint32_t)(r - s_first[ii]);
+        const int bit = (int)((uint32_t)s_bitoff[ii] + j * (uint32_t)w);
+        long long wi = bit >> 5;
+        wi = wi < 0 ? 0 : (wi > pw - 2 ? pw - 2 : wi);
+        const uint32_t sh = (uint32_t)bit & 31u;
+        const uint32_t lo = __ldg(page + wi);
+        const uint32_t hi = __ldg(page + wi + 1);
+        uint32_t packed = (lo >> sh) | (sh == 0 ? 0u : hi << (32u - sh));
+        packed &= (w >= 1 && w <= 32) ? (0xFFFFFFFFu >> (32 - w)) : 0u;
+        uint32_t v;
+        if (m == kModeRaw) {
+          v = __ldg(page + kk);
+        } else if (m == kModeDict) {
+          long long di = (int)((uint32_t)s_dictoff[ii] + packed);
+          di = di < 0 ? 0 : (di > pw - 1 ? pw - 1 : di);
+          v = __ldg(page + di);
+        } else {
+          v = packed + s_base[ii];                 // wrap-around delta
+        }
+        out_b[r * k + i0 + ii] = v;
+      }
+      ii += step_i;
+      rl += step_r;
+      if (ii >= kc) {
+        ii -= kc;
+        rl += 1;
+      }
+    }
   }
 }
 
@@ -174,43 +159,25 @@ const char* tg_error_string(int code) {
 
 // buf: (buf_pages, page_words) uint32 words; phys (B, P) and mode, width,
 // base, dictoff, bitoff (B, P, C) int32 (base: uint32 bit patterns);
-// cols: k int32 column ids, or null for every column (k == C); out:
-// (B, n_rows, k) uint32. Returns cudaGetLastError() after the launch.
+// cols: k int32 column ids in [0, C), or null for every column (k == C);
+// out: (B, n_rows, k) uint32. Returns cudaGetLastError() after the launch.
 int tier_gather(const void* buf, long long buf_pages, int page_words,
                 const void* phys, const void* mode, const void* width,
                 const void* base, const void* dictoff, const void* bitoff,
                 long long P, int C, const void* cols, int k, long long n_rows,
                 int B, void* out, void* stream) {
   if (buf_pages < 1 || page_words < 2 || P < 1 || C < 1 || k < 1 ||
-      n_rows < 1 || B < 1 || B > 65535)
+      n_rows < 1 || B < 1 || B > 65535 || P > 0x7FFFFFFFLL)
     return cudaErrorInvalidValue;
   if (cols == nullptr && k != C) return cudaErrorInvalidValue;
-  const long long words = n_rows * (long long)C;
-  if (words > P * (long long)page_words) return cudaErrorInvalidValue;
-  const long long lanes = n_rows * (long long)k;
-  long long blocks = (lanes + kThreads - 1) / kThreads;
-  const long long cap = 132LL * 64 / B + 1;     // grid-stride beyond this
-  if (blocks > cap) blocks = cap;
-  const dim3 grid((unsigned)blocks, (unsigned)B);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* ubuf = (const uint32_t*)buf;
-  if (words <= 0xFFFFFFFFLL && lanes <= 0xFFFFFFFFLL) {
-    tier_gather_kernel<uint32_t, Div32><<<grid, kThreads, 0, s>>>(
-        ubuf, buf_pages, (const int*)phys, (const int*)mode,
-        (const int*)width, (const uint32_t*)base, (const int*)dictoff,
-        (const int*)bitoff, P, (const int*)cols, (uint32_t)page_words,
-        (uint32_t)C, (uint32_t)k, make_div32((uint32_t)k),
-        make_div32((uint32_t)page_words), make_div32((uint32_t)C), lanes,
-        (uint32_t*)out);
-  } else {
-    tier_gather_kernel<unsigned long long, Div64><<<grid, kThreads, 0, s>>>(
-        ubuf, buf_pages, (const int*)phys, (const int*)mode,
-        (const int*)width, (const uint32_t*)base, (const int*)dictoff,
-        (const int*)bitoff, P, (const int*)cols,
-        (unsigned long long)page_words, (unsigned long long)C,
-        (unsigned long long)k, make_div64(k), make_div64(page_words),
-        make_div64(C), lanes, (uint32_t*)out);
-  }
+  if (n_rows * (long long)C > P * (long long)page_words)
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)P, (unsigned)B);
+  tier_gather_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)buf, buf_pages, page_words, (const int*)phys,
+      (const int*)mode, (const int*)width, (const uint32_t*)base,
+      (const int*)dictoff, (const int*)bitoff, P, C, (const int*)cols, k,
+      n_rows, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
