@@ -116,7 +116,32 @@ Phases (any failure exits non-zero; nothing is caught):
    unsharded cache (full attention in plain torch); counted (one
    decode_attention launch a step); p50 per mode, a traced step per mode
    and the modelled shipped bytes per layer;
-12. a JSON line with every kernel's numbers, and the last line
+12. the tier_gather kernel against its plain version, bitwise: random
+   descriptors (widths 0..33, bit and dictionary offsets off both ends of
+   the frame) at 3, 5, 7 and 8 columns, B = 1 and 4; a small pool's real
+   cold frames (every other page cold, delta and dictionary planes of
+   widths 1..32, pages starting mid-row, NaN and subnormal payloads,
+   null-descriptor padding), one request alone against the same request
+   stacked; then the tiered path: a new `FViewNode(3 GiB)` (promotion
+   off, as benchmarks/bench_tiering.py sets it) holding a 2^25-row x
+   8-word table (1 GiB, bench_selection.py's schema) of bench_tiering.py's
+   analytics data (c0 uniform in [0, 64), c1..c7 integer-valued in [0,
+   128)), all 512 pages demoted (timed on the host) and `tier_summary`'s
+   effective capacity checked >= 1.5, then a hot copy; tier_gather at the
+   path's shapes (B=4 stacked requests, every column and 3 columns)
+   against the plain version and the written words, timed beside its
+   bound and the flat page gather; four connections each submitting
+   selection (bench_tiering.py's PIPE), projection, SmartAddress of 3
+   columns, GroupBy (c0, 2 value columns, 64 buckets) and selection +
+   post-encrypt, each cold round flushed under sync debug mode "error"
+   and held bitwise to the same round over the hot copy (rows, counts,
+   groups, shipped bytes), its read bytes equal to `tier_read_bytes` and
+   below the hot read; counted (one tier_gather launch a cold round);
+   per-verb p50 cold and hot and a traced cold round of each verb;
+   promote_table of 64 pages timed and held bitwise to the hot copy's
+   pages, then every other page cold and each verb's mixed-tier round
+   held bitwise to the hot round;
+13. a JSON line with every kernel's numbers, and the last line
    `{"ok": true, "device": {...}}`.
 
 Exits 2 without a result where torch sees no CUDA device.

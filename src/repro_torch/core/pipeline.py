@@ -392,16 +392,16 @@ class CompiledPipeline:
         tuple (`FarPool.tier_desc`) and `page_words` the frame width;
         `read_bytes` overrides the logical read accounting with the
         physical (compressed) bytes the tiered gather pulls."""
-        tier = self._as_tier(tier)
+        if self._as_tier(tier) is None:
+            pages = _upload(pages, torch.int64, buf.device)[None]
+        else:
+            pages, tier = None, tuple(t[None] for t in tier)
         nv = torch.full((1,), int(n_valid), dtype=torch.int32,
                         device=buf.device)
-        payload = self._gather_run(
-            buf, None if tier is not None else
-            _upload(pages, torch.int64, buf.device)[None], nv,
-            self._as_ids(row_ids, buf.device, 1),
-            self._as_build(build, buf.device), n_rows, row_words,
-            None if tier is None else tuple(t[None] for t in tier),
-            page_words)
+        payload = self._gather_run(buf, pages, nv,
+                                   self._as_ids(row_ids, buf.device, 1),
+                                   self._as_build(build, buf.device),
+                                   n_rows, row_words, tier, page_words)
         return self._wrap(self._split(payload, 0, n_rows),
                           self._pages_read_bytes(n_rows, row_words)
                           if read_bytes is None else read_bytes)
@@ -424,14 +424,12 @@ class CompiledPipeline:
         request's rows are sliced back to its own length. A tiered plan
         takes the stacked descriptors `tier` (each field (B, P[, C])),
         `page_words` and per-request physical `read_bytes`."""
-        tier = self._as_tier(tier)
+        pages = (_upload(pages, torch.int64, buf.device)
+                 if self._as_tier(tier) is None else None)
         nv = np.asarray(n_valid, np.int64)
         b = int(nv.shape[0])
-        if tier is None:
-            pages = _upload(pages, torch.int64, buf.device)
         payload = self._gather_run(
-            buf, None if tier is not None else pages,
-            _upload(nv, torch.int32, buf.device),
+            buf, pages, _upload(nv, torch.int32, buf.device),
             self._as_ids(row_ids, buf.device, b),
             self._as_build(build, buf.device), n_rows, row_words, tier,
             page_words)
