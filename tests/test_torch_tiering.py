@@ -444,16 +444,29 @@ def test_string_extent_read_while_cold_matches_jax():
 
 
 # -------------------------------------------------------------- mechanics
-def test_corrupt_cold_frame_raises_typed_error(data):
-    node = fv.FViewNode(CAP, page_bytes=PAGE, promote_after=99, device="cpu")
-    qp, ft = _load(node, _words(data))
-    assert node.pool.demote_table(ft) == len(ft.pages)
-    te = node.pool._tier[ft.table_id]
-    p = int(np.flatnonzero(te.cold)[0])
-    frame, off = int(te.phys[p]), int(te.span[p][0])
-    node.pool.buf.view(torch.int32)[frame, off] ^= 1
-    with pytest.raises(fv.PageCodecError):
-        node.pool.promote_table(ft)
+def test_corrupt_cold_frame_raises_typed_error_as_jax(data):
+    """A flipped bit in a cold frame is a typed failure on promote in
+    both packages — never wrong bytes quietly restored."""
+    words = _words(data)
+    jnode, node = _pair(promote_after=99)
+    for n in (jnode, node):
+        _, ft = _load(n, words)
+        assert n.pool.demote_table(ft) == len(ft.pages)
+        te = n.pool._tier[ft.table_id]
+        p = int(np.flatnonzero(te.cold)[0])
+        frame, off = int(te.phys[p]), int(te.span[p][0])
+        if n is node:
+            n.pool.buf.view(torch.int32)[frame, off] ^= 1
+            err = fv.PageCodecError
+        else:
+            w = n.pool.buf[frame, off:off + 1].view(jnp.uint32) ^ 1
+            n.pool.buf = n.pool.buf.at[frame, off:off + 1].set(
+                w.view(jnp.float32))
+            err = jfv.PageCodecError
+        with pytest.raises(err):
+            n.pool.promote_table(ft)
+    np.testing.assert_array_equal(_bits(node.pool.buf.numpy()),
+                                  _bits(jnode.pool.buf))
 
 
 def test_access_hysteresis_promotes_as_jax(data):
@@ -473,17 +486,25 @@ def test_access_hysteresis_promotes_as_jax(data):
     assert node.pool.tier_stats["promoted_pages"] == len(ft.pages)
 
 
-def test_write_promotes_first(data):
+def test_write_promotes_first_as_jax(data):
     words = _words(data)
-    node = fv.FViewNode(CAP, page_bytes=PAGE, promote_after=99, device="cpu")
-    qp, ft = _load(node, words)
-    node.pool.demote_table(ft)
     d2 = dict(data)
     d2["c1"] = data["c1"] + 1.0
     words2 = _words(d2)
+    jnode, node = _pair(promote_after=99)
+    (jqp, jft), (qp, ft) = _load(jnode, words), _load(node, words)
+    node.pool.demote_table(ft)
+    jnode.pool.demote_table(jft)
     fv.table_write(qp, ft, words2)
-    assert not node.pool.is_tiered(ft)
-    np.testing.assert_array_equal(fv.table_read(qp, ft).numpy(), words2)
+    jfv.table_write(jqp, jft, words2)
+    assert not node.pool.is_tiered(ft) and not jnode.pool.is_tiered(jft)
+    assert ft.pages == jft.pages
+    got = fv.table_read(qp, ft)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(words2))
+    np.testing.assert_array_equal(_bits(got.numpy()),
+                                  _bits(jfv.table_read(jqp, jft)))
+    assert qp.bytes_read_pool == jqp.bytes_read_pool
+    assert vars(node.pool.stats) == vars(jnode.pool.stats)
 
 
 def test_effective_capacity_multiplier_matches_jax():
@@ -504,14 +525,20 @@ def test_effective_capacity_multiplier_matches_jax():
     np.testing.assert_array_equal(fv.table_read(qp, ft).numpy(), words)
 
 
-def test_demote_promote_roundtrip_exact(data):
+def test_demote_promote_roundtrip_exact_as_jax(data):
     words = _words(data)
-    node = fv.FViewNode(CAP, page_bytes=PAGE, promote_after=99, device="cpu")
-    qp, ft = _load(node, words)
-    node.pool.demote_table(ft)
-    assert node.pool.promote_table(ft) == len(ft.pages)
-    assert not node.pool.is_tiered(ft)
-    np.testing.assert_array_equal(fv.table_read(qp, ft).numpy(), words)
+    jnode, node = _pair(promote_after=99)
+    (jqp, jft), (qp, ft) = _load(jnode, words), _load(node, words)
+    for n, t in ((jnode, jft), (node, ft)):
+        n.pool.demote_table(t)
+        assert n.pool.promote_table(t) == len(t.pages)
+        assert not n.pool.is_tiered(t)
+    assert ft.pages == jft.pages
+    assert node.pool.tier_summary() == jnode.pool.tier_summary()
+    got = fv.table_read(qp, ft)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(words))
+    np.testing.assert_array_equal(_bits(node.pool.buf.numpy()),
+                                  _bits(jnode.pool.buf))
 
 
 # -------------------------------------------------------------- scheduler
