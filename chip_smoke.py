@@ -2170,11 +2170,10 @@ def check_tier_gather(tg, fpool, fv, seed, report):
         if not (te.cold.any() and not te.cold.all() and {1, 2} <= modes):
             raise AssertionError(f"tier_gather C={c}: the frames hold no "
                                  "mixed delta and dictionary planes")
-        desc = pool.tier_desc_padded(ft, p_n + 2)
-        null = tg.null_descriptor(p_n + 2, c, pool.null_page)
-        one = tg.tier_tensors(desc, "cuda")
-        stack = tg.tier_tensors(tuple(np.stack([a, b, a, b]) for a, b in
-                                      zip(null, desc)), "cuda")
+        one = tuple(t[0] for t in pool.tier_desc_stacked([ft], p_n + 2))
+        null = tg.tier_tensors(
+            tg.null_descriptor(p_n + 2, c, pool.null_page), "cuda")
+        stack = tuple(torch.stack([a, b, a, b]) for a, b in zip(null, one))
         rows = (p_n + 2) * pw // c
         for tier, what in ((one, "B=1"), (stack, "B=4")):
             for cols in (None, [c - 1, 0]):
@@ -2353,7 +2352,7 @@ def tiered_path(fv, op, tg, fpool, kernels, gen, report):
         cold_res = tiered_round(fv, node, qps, cold, p, strict=True)
         hot_res = tiered_round(fv, node, qps, hot, p, strict=False)
         want = node.pool.tier_read_bytes(
-            cold, fv.compile_pipeline(cold, p, tiered=True).read_cols)
+            cold, fv.compile_pipeline(cold, p).read_cols)
         for c_res, h_res in zip(cold_res, hot_res):
             same_result(c_res, h_res, f"cold {name}")
             if not c_res.read_bytes == want < h_res.read_bytes:

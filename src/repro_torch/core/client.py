@@ -24,8 +24,8 @@ string requests coalesce on (signature, row bucket, width bucket) into one
 stacked `CompiledPipeline.run_strings_batched` round.
 
 Memory tiering: a word table demoted to the pool's cold tier
-(`node.pool.demote_table`) dispatches through the tiered plan, whose
-gather decodes its cold pages on the device in the same dispatch; tiered
+(`node.pool.demote_table`) dispatches with its decode descriptors, and the
+plan's gather decodes its cold pages on the device in the same dispatch; tiered
 tables ride their own stacks (the tier bit is part of the dispatch key),
 each request billed the physical bytes its gather reads. Every submitted
 verb and plain read counts toward promotion (`FarPool.note_access`).
@@ -398,7 +398,7 @@ class FViewNode:
         sig = op_ir.signature(reqs[0].pipeline)
         # homogeneous by dispatch key: a group is all-tiered or all-flat
         tiered = reqs[0].strings is None and self.pool.is_tiered(ft0)
-        pipe = compile_pipeline(ft0, reqs[0].pipeline, tiered=tiered)
+        pipe = compile_pipeline(ft0, reqs[0].pipeline)
         for req in reqs:
             region = self.regions[req.qp.region]
             if region.loaded_signature != sig:
@@ -425,13 +425,14 @@ class FViewNode:
         elif reqs[0].strings is not None:
             results = self._dispatch_strings_batched(pipe, reqs)
         else:
-            results = self._dispatch_pages_batched(pipe, reqs)
+            results = self._dispatch_pages_batched(pipe, reqs, tiered)
         self.dispatches += 1        # counted only once the launch succeeded
         for req, res in zip(reqs, results):
             req.result = res
             self._account(req, res)
 
-    def _dispatch_pages_batched(self, pipe, reqs) -> list[PipelineResult]:
+    def _dispatch_pages_batched(self, pipe, reqs,
+                                tiered: bool) -> list[PipelineResult]:
         """Stacked word-table round: pad every page list to the shape
         bucket with the pool's pinned null page; the stacked pass reads
         zeros past each table's extent and n_valid masks them."""
@@ -449,7 +450,7 @@ class FViewNode:
             for b, r in enumerate(reqs):
                 row_ids[b, : r.ft.n_rows] = r.row_ids    # tails masked
         tier = pw = phys = None
-        if pipe.tiered:
+        if tiered:
             # each request's decode descriptors, padded to the bucket's
             # page count with null-descriptor rows (mode RAW over the
             # pinned null page: reads zeros, masked by n_valid), stacked on

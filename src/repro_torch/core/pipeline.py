@@ -28,12 +28,12 @@ and a JoinSmall pipeline its build as `build=(keys, vals)`):
       (B, P), n_valid (B,). The stack axis B is explicit all the way down:
       every kernel takes it in its grid, with a per-request n_valid; one
       join build serves the whole stack.
-  A tiered plan (`compile_pipeline(..., tiered=True)`) takes, in both
-      page entry points, the pool's decode descriptors as `tier=` (one
-      request's, or a (B, ...) stack) and `page_words=` in place of the
-      page list, and the physical bytes its gather reads as `read_bytes=`;
-      its gather decodes cold pages (`kernels/tier.py`) and the body is
-      the same. A flat plan takes no tier operand.
+  Over a tiered table, both page entry points take the pool's decode
+      descriptors as `tier=` (one request's, or a (B, ...) stack) and
+      `page_words=` in place of the page list, and the physical bytes the
+      gather reads as `read_bytes=`; the gather then decodes cold pages
+      (`kernels/tier.py`) and the body is the same. One plan serves both
+      tiers: the operand alone picks the gather.
   pipe(strings, lengths=..., device=...)       one string request
   pipe.run_strings_batched(strings, lengths, n_valid, widths=...)
       stacked string round: strings (B, n, w), lengths (B, n).
@@ -217,12 +217,8 @@ class PipelineResult:
 class CompiledPipeline:
     """The resolved plan of one (schema layout, pipeline signature)."""
 
-    def __init__(self, schema: FTable, pipeline: tuple,
-                 tiered: bool = False):
+    def __init__(self, schema: FTable, pipeline: tuple):
         pipeline = op_ir.validate_pipeline(tuple(pipeline))
-        # tiered plans take the pool's decode descriptors and decode cold
-        # pages in their gather; `tiered` is part of the plan-cache key
-        self.tiered = bool(tiered)
         if (any(isinstance(op, op_ir.JoinSmall) for op in pipeline)
                 and any(isinstance(op, (op_ir.GroupBy, op_ir.Distinct))
                         for op in pipeline)):
@@ -388,11 +384,12 @@ class CompiledPipeline:
         buf: pool buffer (n_pages, page_words); pages: (P,) page ids;
         n_valid: rows >= n_valid are masked; build: a JoinSmall
         pipeline's build table; row_ids: optional (n_rows,) original-table
-        row indices. On a tiered plan, `tier` is the pool's descriptor
-        tuple (`FarPool.tier_desc`) and `page_words` the frame width;
-        `read_bytes` overrides the logical read accounting with the
-        physical (compressed) bytes the tiered gather pulls."""
-        if self._as_tier(tier) is None:
+        row indices. Over a tiered table, `tier` is the pool's descriptor
+        tuple (`FarPool.tier_desc`), in place of `pages`, and `page_words`
+        the frame width; `read_bytes` overrides the logical read
+        accounting with the physical (compressed) bytes the tiered gather
+        pulls."""
+        if tier is None:
             pages = _upload(pages, torch.int64, buf.device)[None]
         else:
             pages, tier = None, tuple(t[None] for t in tier)
@@ -421,11 +418,12 @@ class CompiledPipeline:
         lists padded with the pool null page and their tails masked by
         `n_valid`. Read bytes bill each request's own rows; shipped bytes
         come from device counts that already exclude masked rows; each
-        request's rows are sliced back to its own length. A tiered plan
-        takes the stacked descriptors `tier` (each field (B, P[, C])),
-        `page_words` and per-request physical `read_bytes`."""
+        request's rows are sliced back to its own length. Over tiered
+        tables it takes, in place of `pages`, the stacked descriptors
+        `tier` (each field (B, P[, C])), `page_words` and per-request
+        physical `read_bytes`."""
         pages = (_upload(pages, torch.int64, buf.device)
-                 if self._as_tier(tier) is None else None)
+                 if tier is None else None)
         nv = np.asarray(n_valid, np.int64)
         b = int(nv.shape[0])
         payload = self._gather_run(
@@ -525,12 +523,6 @@ class CompiledPipeline:
                     _UNIQUE_BUILDS.add(key)
         return keys, vals
 
-    def _as_tier(self, tier):
-        if (tier is None) == self.tiered:
-            raise ValueError("tiered pipelines take a tier descriptor "
-                             "operand; flat pipelines take none")
-        return tier
-
     @property
     def read_cols(self) -> tuple[int, ...] | None:
         """Column indices a column-granular gather touches, or None when
@@ -561,7 +553,7 @@ class CompiledPipeline:
     def _gather_run(self, buf, pages, n_valid, row_ids, build, n_rows,
                     row_words, tier=None, page_words=None):
         """The pool read of a (B, ...) stack, then the body: the page
-        gather, or on a tiered plan the descriptors' decode (cold pages
+        gather, or given a tier operand the descriptors' decode (cold pages
         unpacked, raw pages read as they are)."""
         if self.kind == "mask":
             raise ValueError("a string table's bytes ride its request, not "
@@ -741,24 +733,24 @@ _CACHE: dict = {}                # guarded-by: _CACHE_LOCK
 _CACHE_LOCK = threading.Lock()
 
 
-def compile_pipeline(schema: FTable, pipeline: tuple, *,
-                     tiered: bool = False) -> CompiledPipeline:
-    """Fetch (or build) the plan for (schema layout, signature, tier).
+def compile_pipeline(schema: FTable, pipeline: tuple) -> CompiledPipeline:
+    """Fetch (or build) the plan for (schema layout, signature).
 
     The key deliberately excludes the table *name*: two clients running the
     same pipeline over same-layout tables share one plan, which is what lets
     the node's scheduler coalesce them into a stacked dispatch. The key
     mirrors the reference's (`repro/core/pipeline.py` compile_pipeline)
-    minus its lowering field, which the port does not have. `tiered=True`
-    keys a separate plan whose gather takes the pool's decode descriptors
-    and decodes cold pages in the dispatch."""
+    minus its lowering field, which the port does not have, and its tier
+    field: a jitted executable is traced per operand set, while one plan
+    here serves flat and tiered tables, its gather picked by the `tier`
+    operand."""
     pipeline = op_ir.validate_pipeline(tuple(pipeline))
     key = (tuple((c.name, c.dtype) for c in schema.columns),
-           bool(schema.str_width), op_ir.signature(pipeline), bool(tiered))
+           bool(schema.str_width), op_ir.signature(pipeline))
     with _CACHE_LOCK:
         pipe = _CACHE.get(key)
         if pipe is None:
-            pipe = _CACHE[key] = CompiledPipeline(schema, pipeline, tiered)
+            pipe = _CACHE[key] = CompiledPipeline(schema, pipeline)
     return pipe
 
 

@@ -608,26 +608,15 @@ class FarPool:
         self._tier_dev[ft.table_id] = desc
         return desc
 
-    def tier_desc_padded(self, ft: FTable, n_pages: int) -> tuple:
-        """Host-side descriptor tuple padded to `n_pages` rows with the
-        null descriptor (mode RAW + the pinned null page): what a batched
-        scheduling round stacks so different-sized tiered tables share one
-        dispatch — padding pages read zeros, exactly like the flat path's
-        null-page padding."""
-        te = self._tier.get(ft.table_id)
-        if te is None or te.is_str:
-            raise ValueError(f"table {ft.name!r} has no word-tier entry")
-        out = ktier.null_descriptor(n_pages, te.C, self.null_page)
-        P = len(te.cold)
-        src = (te.phys, te.mode, te.width, te.base, te.dictoff, te.bitoff)
-        for dst, s in zip(out, src):
-            dst[:P] = s
-        return out
-
     def tier_desc_stacked(self, fts: list[FTable], n_pages: int) -> tuple:
-        """`tier_desc_padded` of each table, stacked (B, n_pages[, C]) on
-        the pool's device: built there from each table's cached
-        descriptors, so a warm round uploads nothing and never syncs."""
+        """Each table's descriptors padded to `n_pages` rows with the null
+        descriptor (mode RAW + the pinned null page) and stacked
+        (B, n_pages[, C]) on the pool's device, `base` as bit patterns:
+        what a batched round passes so different-sized tiered tables share
+        one dispatch — padding pages read zeros, exactly like the flat
+        path's null-page padding. Built there from each table's cached
+        descriptors, so a warm round uploads nothing and never syncs (the
+        reference's `tier_desc_padded`, one row a table)."""
         descs = [self.tier_desc(ft) for ft in fts]
         b, c = len(fts), int(descs[0][1].shape[1])
 

@@ -1091,7 +1091,11 @@ def test_tier_gather_kernel_matches_plain_on_pool_frames(card, c):
     modes = set(te.mode[te.cold].reshape(-1).tolist())
     assert {1, 2} <= modes and (c < 32 or len(widths) >= 20)
     pad = p_n + 2
-    desc = pool.tier_desc_padded(ft, pad)
+    # the dispatch's own descriptors (on the card), back on the host
+    desc = tuple(a.view(np.uint32) if name == "base" else a
+                 for name, a in zip(ttier.TIER_FIELDS, (
+                     t[0].cpu().numpy()
+                     for t in pool.tier_desc_stacked([ft], pad))))
     stack = tuple(np.stack([a, b]) for a, b in zip(
         ttier.null_descriptor(pad, c, pool.null_page), desc))
     buf = pool.buf.cpu().numpy()

@@ -238,15 +238,21 @@ def _same_pool(pool, jpool, fts, jfts):
             assert (pool.tier_read_bytes(ft, cols)
                     == jpool.tier_read_bytes(jft, cols))
         if jpool.is_tiered(jft):
-            n = len(ft.pages) + 3
-            for a, b in zip(pool.tier_desc_padded(ft, n),
-                            jpool.tier_desc_padded(jft, n)):
-                assert a.dtype == b.dtype
-                np.testing.assert_array_equal(a, b)
             for a, b in zip(pool.tier_desc(ft),
                             tier.tier_tensors(jpool.tier_desc_padded(
                                 jft, len(ft.pages)), "cpu")):
                 assert torch.equal(a, b)
+    # the round's stack, as the dispatch builds it: one row a table, each
+    # the reference's padded descriptors (two null-padding pages at least)
+    cold = [(ft, jft) for ft, jft in zip(fts, jfts) if jpool.is_tiered(jft)]
+    if cold:
+        n = max(len(ft.pages) for ft, _ in cold) + 2
+        stack = pool.tier_desc_stacked([ft for ft, _ in cold], n)
+        for i, (_, jft) in enumerate(cold):
+            for a, b in zip(stack, tier.tier_tensors(
+                    jpool.tier_desc_padded(jft, n), "cpu")):
+                assert a.dtype == b.dtype == torch.int32
+                assert torch.equal(a[i], b)
 
 
 def test_pool_demote_promote_matches_jax(data):
