@@ -26,7 +26,12 @@ Phases (any failure exits non-zero; nothing is caught):
    caps the port had before); the join probe over B=4
    x 2^26 rows of 3 words (probe keys with NaN/inf/+-2^31/halves, build
    values with inf/NaN payloads/-0.0/subnormals) for builds of 512, 64,
-   2^16 and 0 keys, widened as the pipeline calls it, bitwise.
+   2^16 and 0 keys, widened as the pipeline calls it, bitwise; the byte
+   cipher (`ctr_crypt_bytes`, a string table's pre-decrypt) over B=4 x
+   2^22 strings of 64 bytes (1 GiB), exactly, without row ids and with
+   shuffled row ids whose row_id * 64 passes 2^31 and 2^32, its own
+   inverse, timed beside its plain version, its bound given with the
+   operations counted and the SM clock `nvidia-smi` reports.
    Times each (CUDA events, median of 10 after warm-up) beside its plain
    version, a library yardstick where one exists, and its bound; the
    grouping's sort path and its bucket sort are timed on their own;
@@ -79,12 +84,18 @@ Phases (any failure exits non-zero; nothing is caught):
    submitting RegexMatch and RegexMatch + post-Crypt in one round (2
    dispatches; the post-Crypt ships 1 byte a row and launches no cipher),
    then a round of mixed widths (48 and 64) and row counts that stacks
-   into one dispatch, both flushed under sync debug mode "error", counted
-   and checked against the plain path (masks, shipped and read bytes by
-   the JAX rules); Crypt(pre) over a string table refused naming slice
-   4b; per-verb p50 under sync debug mode "error" and a traced round
-   splitting device time into the upload of the byte sideband, dfa_match
-   and the rest;
+   into one dispatch, then a pre-decrypt round (Crypt(pre) + RegexMatch
+   over the four tables encrypted from --seed: one dispatch, one byte
+   cipher launch, one dfa_match launch, and the clear round's masks and
+   bytes), then one table in 4 partitions by a seeded permutation, each
+   request with its row ids, clear and encrypted (one dispatch each, the
+   masks scattered back by row id equal to the whole table's), all
+   flushed under sync debug mode "error", counted and checked against the
+   plain path (masks, shipped and read bytes by the JAX rules); the
+   sideband's stacking (clear and encrypted tables) and upload timed
+   alone; per-verb p50 under sync debug mode "error", with the host's
+   part of a round beside it, and a traced round splitting device time into the upload of the byte
+   sideband, dfa_match and the rest;
 10. the decode_attention kernel against its plain version on the card at
    the far-KV path's shape (granite-3-8b's attention block, Hq=32, Hkv=8,
    D=128, over a pool of P=16 shards x B=8 sequences x 2048 rows), bf16
@@ -167,9 +178,15 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM: 80 GB HBM3 at 3.35 TB/s
 # sheet: 132 SMs x 128 lanes x 2 flops per FMA x 1.98 GHz), for the
 # selection's float compares
 FP32_OPS_PER_S = 67e12
-# 32-bit integer instructions: 64 INT32 lanes per SM (NVIDIA's H100
-# whitepaper), same SMs and clock
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer instructions: the SM issues one warp instruction a clock
+# on each of its 4 schedulers, 128 lanes a clock, as many as its FP32
+# lanes. The whitepaper's 64 INT32 lanes are one pipe of two: nvcc issues
+# integer adds and shifts as IMAD on the FMA pipe beside it (398 of the
+# byte kernel's 1,744 SASS instructions, `cuobjdump -sass` of the sm_90a
+# build; H100 80GB HBM3, 700.00 W), and the byte cipher ran
+# faster (1.985 ms) than 64 lanes allow for its work (2.375 ms; H100 80GB
+# HBM3, 700.00 W), so 64 lanes is no bound.
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # shared memory: 32 banks of 4 bytes per SM a cycle (NVIDIA's H100
 # whitepaper); one DFA transition is one byte lookup, one bank slot
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
@@ -180,6 +197,12 @@ SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 # serves two words, each XORed with its data word once. Index arithmetic
 # the kernel also issues is its own overhead, not the function's work.
 CIPHER_OPS_PER_WORD = 72 / 2 + 1
+# The byte cipher's work, counted the same way: 72 instructions a counter
+# block (one block serves two positions) and one XOR a byte. The count of
+# blocks is what the data needs: ceil(L / 2) a request without row ids,
+# ceil(w / 2) a row with them (a row of odd width needs as many blocks
+# whether it starts on an even or an odd position).
+CIPHER_OPS_PER_BLOCK = 72
 ROWS_LOG2 = 25                # 2^25 rows x 8 f32 words = a 1 GiB table
 KEY_PRE, NONCE_PRE = (0x0BADF00D, 0x5EED5EED), 1234
 KEY_POST, NONCE_POST = (0x12345678, 0x9ABCDEF0), 99
@@ -407,6 +430,77 @@ def check_ctr_crypt(ctr, gen, b, n_words, report):
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "shape": [b, n_words]}
+
+
+def sm_clocks():
+    """The SM clock now and its maximum, as `nvidia-smi` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def check_ctr_crypt_bytes(ctr, gen, b, report):
+    """The byte cipher (a string table's pre-decrypt) against its plain
+    version at the regex round's shape, B x 2^22 strings of 64 bytes,
+    without and with row ids; timed beside the plain version. Returns the
+    JSON entry."""
+    n, w = 1 << REGEX_ROWS_LOG2, REGEX_WIDTH
+    data = torch.randint(0, 256, (b, n * w), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    # partition-style row ids: a shuffle of b * n rows, the even ones
+    # offset around 2^31 / 64 and the odd ones around 2^32 / 64, so that
+    # row_id * 64 passes 2^31 and 2^32 (the uint32 wrap of the reference)
+    perm = torch.randperm(b * n, generator=gen, device="cuda")
+    ids = (perm + torch.where(perm % 2 == 0, 2**25, 2**26)
+           - b * n // 4).to(torch.int32).view(b, n)
+    del perm
+    for name, i in (("stream", None), ("row ids", ids)):
+        got = ctr.ctr_crypt_bytes(data, KEY_PRE, NONCE_PRE, i, w)
+        exp = ctr.ctr_crypt_bytes_plain(data, KEY_PRE, NONCE_PRE, i, w)
+        if not torch.equal(got, exp):
+            raise AssertionError(f"ctr_crypt_bytes {name}: "
+                                 f"{int((got != exp).sum())} bytes differ "
+                                 f"from the plain version")
+        back = ctr.ctr_crypt_bytes(got, KEY_PRE, NONCE_PRE, i, w)
+        if not torch.equal(back, data):
+            raise AssertionError(f"ctr_crypt_bytes {name}: not its own "
+                                 f"inverse")
+        report(f"ctr_crypt_bytes {name}: {b}x{n}x{w} bytes equal to the "
+               f"plain version, involutive")
+        del got, exp, back
+    ms = cuda_ms(lambda: ctr.ctr_crypt_bytes(data, KEY_PRE, NONCE_PRE))
+    ms_ids = cuda_ms(lambda: ctr.ctr_crypt_bytes(data, KEY_PRE, NONCE_PRE,
+                                                 ids, w))
+    plain_ms = cuda_ms(lambda: ctr.ctr_crypt_bytes_plain(
+        data, KEY_PRE, NONCE_PRE), reps=3, warmup=1)
+    clocks = sm_clocks()
+    n_bytes = data.numel()
+    blocks = b * ((n * w + 1) // 2)
+    ops = blocks * CIPHER_OPS_PER_BLOCK + n_bytes
+    t_bytes = 2 * n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    ids_ops = b * n * ((w + 1) // 2) * CIPHER_OPS_PER_BLOCK + n_bytes
+    t_ids = max((2 * n_bytes + ids.numel() * 4) / HBM_BYTES_PER_S,
+                ids_ops / INT32_OPS_PER_S)
+    bound = max(t_bytes, t_ops)
+    report(f"ctr_crypt_bytes {b}x{n}x{w} bytes: {ms:.3f} ms; with row ids "
+           f"{ms_ids:.3f} ms (bound {t_ids * 1e3:.3f}); plain "
+           f"{plain_ms:.3f} ms; bound {bound * 1e3:.3f} ms (bytes "
+           f"{t_bytes * 1e3:.3f}, {ops} operations = {blocks} blocks x "
+           f"{CIPHER_OPS_PER_BLOCK} + {n_bytes} XORs, "
+           f"{t_ops * 1e3:.3f} at 128 lanes x 132 SMs x 1.98 GHz); "
+           f"{100 * bound * 1e3 / ms:.1f}% of the bound; SM clock now, "
+           f"max: {clocks}")
+    return {"name": "ctr_crypt_bytes", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ctr_crypt.cu",
+            "replaces": "src/repro/kernels/ctr_crypt.py:76",
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": [b, n, w], "ms_row_ids": ms_ids,
+            "bound_ms_row_ids": t_ids * 1e3, "operations": ops,
+            "sm_clocks": clocks}
 
 
 def f32_words(*pool):
@@ -977,28 +1071,38 @@ def submit_round(fv, qps, t, p):
 
 
 def verb_p50(fv, node, qps, verbs, report, strict=False):
-    """Per-verb p50: one stacked round of all connections, 5 repeats;
-    `strict` flushes each under sync debug mode "error"."""
+    """Per-verb p50: one stacked round of all connections, 5 repeats, the
+    verbs in turn within each repeat (so that rounds whose host time
+    drifts over seconds, as the regex rounds' does, are compared at the
+    same moments); `strict` flushes each under sync debug mode "error".
+    Each verb's line also gives the host's part, submit to the flush's
+    return (stacking a sideband, launching), beside its p50."""
+    times = {name: [] for name in verbs}
+    host = {name: [] for name in verbs}
+    for name in [name for _ in range(5) for name in verbs]:
+        t, p = verbs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            reqs = submit_round(fv, qps, t, p)
+            node.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t1 = time.perf_counter()
+        for r in reqs:
+            r.wait()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        host[name].append((t1 - t0) * 1e3)
     p50 = {}
-    for name, (t, p) in verbs.items():
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if strict:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                reqs = submit_round(fv, qps, t, p)
-                node.flush()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            for r in reqs:
-                r.wait()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        p50[name] = statistics.median(times)
+    for name in verbs:
+        p50[name] = statistics.median(times[name])
         report(f"p50 {name}: {p50[name]:.3f} ms for {N_CONNECTIONS} "
-               f"stacked requests (runs {[round(x, 3) for x in times]})")
+               f"stacked requests (runs "
+               f"{[round(x, 3) for x in times[name]]}; host to flush p50 "
+               f"{statistics.median(host[name]):.3f} ms)")
     return p50
 
 
@@ -1522,10 +1626,11 @@ def check_dfa_match(dfa, compile_regex, gen, b, report):
             "ms_by_width": ms_by_width, "match_rate": rate}
 
 
-def regex_path(fv, op, dfa, compile_regex, kernels, seed, node, qps,
+def regex_path(fv, op, dfa, ctr, compile_regex, kernels, seed, node, qps,
                report):
     """Drive RegexMatch over four string tables through the node (their
-    bytes ride each request); returns the counted run's launches and the
+    bytes ride each request), clear, encrypted under a pre-Crypt, and in
+    partitions with row ids; returns the counted run's launches and the
     per-verb p50s."""
     n, w = 1 << REGEX_ROWS_LOG2, REGEX_WIDTH
     rng = np.random.default_rng(seed)
@@ -1538,6 +1643,7 @@ def regex_path(fv, op, dfa, compile_regex, kernels, seed, node, qps,
     report(f"regex path: {len(qps)} string tables of {n} x {w} bytes made "
            f"in {time.perf_counter() - t0:.1f} s")
     rx = op.RegexMatch("err")
+    pre = op.Crypt(KEY_PRE, NONCE_PRE, "pre")
     verbs = {"regex": (tables, (rx,)),
              "regex_post_encrypt": (tables, (rx, op.Crypt(
                  KEY_POST, NONCE_POST, "post")))}
@@ -1549,19 +1655,58 @@ def regex_path(fv, op, dfa, compile_regex, kernels, seed, node, qps,
         mixed.append((fv.FTable(f"mix{i}", (fv.Column("bytes", "str"),),
                                 n_rows=rows, str_width=wi),
                       mat[:rows, :wi], np.minimum(lens[:rows], wi)))
+    # the same tables encrypted at rest (the plain cipher, on the card)
+    t0 = time.perf_counter()
+    encrypted = []
+    for ft, mat, lens in tables:
+        dev = torch.from_numpy(mat).cuda().view(1, -1)
+        enc = ctr.ctr_crypt_bytes_plain(dev, KEY_PRE, NONCE_PRE)
+        encrypted.append((fv.FTable(f"enc_{ft.name}",
+                                    (fv.Column("bytes", "str"),),
+                                    n_rows=n, str_width=w),
+                          enc.view(n, w).cpu().numpy(), lens))
+        del dev, enc
+    # table 0 in partitions by a seeded permutation, clear and encrypted
+    parts = np.array_split(rng.permutation(n), len(qps))
+    partitions = {
+        name: [(fv.FTable(f"{name}{i}", (fv.Column("bytes", "str"),),
+                          n_rows=len(ids), str_width=w), src[ids],
+                tables[0][2][ids], ids) for i, ids in enumerate(parts)]
+        for name, src in (("part", tables[0][1]),
+                          ("part_enc", encrypted[0][1]))}
+    report(f"regex path: tables encrypted and table 0 cut into "
+           f"{len(parts)} partitions in {time.perf_counter() - t0:.1f} s")
 
+    def submit_parts(name, p):
+        return [fv.submit_request(qp, ft, p, strings=mat, lengths=lens,
+                                  row_ids=ids)
+                for qp, (ft, mat, lens, ids) in zip(qps, partitions[name])]
+
+    rounds = (("clear", lambda: {name: submit_round(fv, qps, t, p)
+                                 for name, (t, p) in verbs.items()},
+               len(verbs)),
+              ("mixed", lambda: {"regex_mixed": submit_round(fv, qps, mixed,
+                                                             (rx,))}, 1),
+              ("pre_decrypt", lambda: {"regex_pre_decrypt": submit_round(
+                  fv, qps, encrypted, (pre, rx))}, 1),
+              ("partitions", lambda: {"regex_partitions": submit_parts(
+                  "part", (rx,))}, 1),
+              ("partitions_pre_decrypt", lambda: {
+                  "regex_partitions_pre_decrypt": submit_parts(
+                      "part_enc", (pre, rx))}, 1))
     reset_launches(kernels)
-    d0 = node.dispatches
+    pending, per_round = {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pending = {name: submit_round(fv, qps, t, p)
-                   for name, (t, p) in verbs.items()}
-        node.flush()
-        d1 = node.dispatches
-        pending["regex_mixed"] = submit_round(fv, qps, mixed, (rx,))
-        node.flush()
+        for name, submit, _ in rounds:
+            d0, l0 = node.dispatches, read_launches(kernels)
+            pending.update(submit())
+            node.flush()
+            l1 = read_launches(kernels)
+            per_round[name] = (node.dispatches - d0,
+                               {k: l1[k] - l0[k] for k in l1 if l1[k] - l0[k]})
     finally:
         torch.cuda.set_sync_debug_mode("default")
     results = {name: [r.wait() for r in reqs]
@@ -1569,16 +1714,18 @@ def regex_path(fv, op, dfa, compile_regex, kernels, seed, node, qps,
     torch.cuda.synchronize()
     run_ms = (time.perf_counter() - t0) * 1e3
     launches = read_launches(kernels)
-    report(f"regex path: {N_CONNECTIONS * 3} requests in "
-           f"{node.dispatches - d0} dispatches ({d1 - d0} + "
-           f"{node.dispatches - d1} mixed), {run_ms:.3f} ms, launches "
-           f"{launches}, no host sync before finalize")
-    if d1 - d0 != len(verbs) or node.dispatches - d1 != 1:
-        raise AssertionError("regex path: same-signature string requests "
-                             "did not stack into one dispatch each")
-    if launches["dfa_match"] != len(verbs) + 1 or launches["ctr_crypt"]:
-        raise AssertionError(f"regex path: expected one dfa_match launch a "
-                             f"dispatch and no cipher, got {launches}")
+    report(f"regex path: {len(results) * N_CONNECTIONS} requests in "
+           f"{sum(d for d, _ in per_round.values())} dispatches, "
+           f"{run_ms:.3f} ms, launches {launches}, per round (dispatches, "
+           f"launches) {per_round}, no host sync before finalize")
+    for name, _, dispatches in rounds:
+        cipher = 1 if "pre_decrypt" in name else 0
+        want = (dispatches, {"dfa_match": dispatches,
+                             **({"ctr_crypt_bytes": 1} if cipher else {})})
+        if per_round[name] != want:
+            raise AssertionError(f"regex path, round {name}: expected "
+                                 f"(dispatches, launches) {want}, got "
+                                 f"{per_round[name]}")
 
     table, accept = dfa.prepare_dfa(*compile_regex("err"), "cuda")
 
@@ -1590,12 +1737,18 @@ def regex_path(fv, op, dfa, compile_regex, kernels, seed, node, qps,
 
     expected = [plain_mask(mat, lens) for _, mat, lens in tables]
     runs = {"regex": tables, "regex_post_encrypt": tables,
-            "regex_mixed": mixed}
+            "regex_mixed": mixed, "regex_pre_decrypt": encrypted,
+            "regex_partitions": partitions["part"],
+            "regex_partitions_pre_decrypt": partitions["part_enc"]}
     for name, res_list in results.items():
-        for i, ((ft, mat, lens), res) in enumerate(zip(runs[name],
-                                                       res_list)):
-            exp = (expected[i] if name != "regex_mixed"
-                   else plain_mask(mat, lens))
+        for i, (req, res) in enumerate(zip(runs[name], res_list)):
+            mat = req[1]
+            if name == "regex_mixed":
+                exp = plain_mask(mat, req[2])
+            elif name.startswith("regex_partitions"):
+                exp = expected[0][torch.from_numpy(req[3]).cuda()]
+            else:
+                exp = expected[i]
             rows, wi = mat.shape
             if not torch.equal(res.mask, exp):
                 raise AssertionError(f"{name}: connection {i}'s mask differs "
@@ -1612,47 +1765,61 @@ def regex_path(fv, op, dfa, compile_regex, kernels, seed, node, qps,
                f"equal to the plain path, shipped "
                f"{[r.shipped_bytes for r in res_list]} read "
                f"{[r.read_bytes for r in res_list]} bytes")
+    # the pre-decrypt round answers as the clear round did; the partitions'
+    # masks, scattered back by row id, are the whole table's
+    for a, c in zip(results["regex_pre_decrypt"], results["regex"]):
+        if (not torch.equal(a.mask, c.mask)
+                or (a.shipped_bytes, a.read_bytes) != (c.shipped_bytes,
+                                                       c.read_bytes)):
+            raise AssertionError("regex_pre_decrypt differs from the clear "
+                                 "round")
+    for name in ("regex_partitions", "regex_partitions_pre_decrypt"):
+        whole = torch.zeros(n, dtype=torch.bool, device="cuda")
+        for ids, res in zip(parts, results[name]):
+            whole[torch.from_numpy(ids).cuda()] = res.mask
+        if not torch.equal(whole, expected[0]):
+            raise AssertionError(f"{name}: the masks scattered back by row "
+                                 f"id differ from the whole table's")
+        report(f"{name}: {len(parts)} partitions scattered back by row id "
+               f"equal the whole table's mask ({int(whole.sum())} of {n})")
+    report("regex_pre_decrypt: masks, shipped and read bytes equal to the "
+           "clear round's")
     del results, pending, expected
 
-    ft, mat, lens = tables[0]
-    req = fv.submit_request(qps[0], ft, (op.Crypt(KEY_PRE, NONCE_PRE, "pre"),
-                                         rx), strings=mat, lengths=lens)
-    try:
-        node.flush()
-    except NotImplementedError:
-        pass
-    if not (isinstance(req.error, NotImplementedError)
-            and "slice 4b" in str(req.error)):
-        raise AssertionError(f"Crypt(pre) over a string table: {req.error!r}")
-    report(f"Crypt(pre) over a string table refused: {req.error}")
-
-    sideband_split(tables, report)
+    sideband_split(tables, encrypted, report)
     verbs["regex_mixed"] = (mixed, (rx,))
+    verbs["regex_pre_decrypt"] = (encrypted, (pre, rx))
     p50 = verb_p50(fv, node, qps, verbs, report, strict=True)
     profile_rounds(fv, node, qps, verbs, report, focus="dfa_match")
     return launches, p50
 
 
-def sideband_split(tables, report):
+def sideband_split(tables, encrypted, report):
     """Where a regex round's host time goes: the round's byte sideband
-    (the four tables' strings, 1 GiB) stacked into pinned host memory as
-    the node stacks it, then uploaded (CUDA events), each timed alone."""
+    (four tables' strings, 1 GiB) stacked into pinned host memory as the
+    node stacks it, the clear tables and the encrypted ones in turn (their
+    arrays come from numpy and from torch's `.cpu()`), then uploaded (CUDA
+    events), each timed alone."""
     b = len(tables)
     n, w = tables[0][1].shape
     pinned = torch.empty((b, n, w), dtype=torch.uint8, pin_memory=True)
     view = pinned.numpy()
-    times = []
+    times = {"clear": [], "encrypted": []}
     for _ in range(3):
-        t0 = time.perf_counter()
-        for i, (_, mat, _) in enumerate(tables):
-            view[i] = mat
-        times.append((time.perf_counter() - t0) * 1e3)
+        for name, src in (("clear", tables), ("encrypted", encrypted)):
+            t0 = time.perf_counter()
+            for i, (_, mat, _) in enumerate(src):
+                view[i] = mat
+            times[name].append((time.perf_counter() - t0) * 1e3)
     dev = torch.empty((b, n, w), dtype=torch.uint8, device="cuda")
     up_ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), reps=5,
                     warmup=1)
     report(f"sideband of a regex round, {pinned.numel()} bytes: stacked into "
-           f"pinned memory in {statistics.median(times):.3f} ms (runs "
-           f"{[round(x, 3) for x in times]}); uploaded in {up_ms:.3f} ms "
+           f"pinned memory in "
+           + "; ".join(f"{k} {statistics.median(v):.3f} ms (runs "
+                       f"{[round(x, 3) for x in v]})"
+                       for k, v in times.items())
+           + f"; uploaded in {up_ms:.3f} ms "
            f"({pinned.numel() / up_ms / 1e6:.1f} GB/s)")
     del pinned, dev
 
@@ -2512,6 +2679,7 @@ def main(argv=None) -> int:
     # every kernel wrapper's launch counter, by the JSON line's names
     kernels = {"select_project": sp.select_project,
                "ctr_crypt": ctr.ctr_crypt,
+               "ctr_crypt_bytes": ctr.ctr_crypt_bytes,
                "hash_group": hg.group_aggregate,
                "group_prep": hg.group_prep,
                "hash_join": hj.hash_join,
@@ -2548,6 +2716,8 @@ def main(argv=None) -> int:
     entries.append(check_ctr_crypt(ctr, gen, N_CONNECTIONS, n * 8,
                                    report))
     torch.cuda.empty_cache()
+    entries.append(check_ctr_crypt_bytes(ctr, gen, N_CONNECTIONS, report))
+    torch.cuda.empty_cache()
     entries += check_hash_group(hg, ref, gen, N_CONNECTIONS, n, report)
     torch.cuda.empty_cache()
     entries.append(check_hash_join(hj, ref, gen, N_CONNECTIONS,
@@ -2576,7 +2746,7 @@ def main(argv=None) -> int:
                                         report)
     p50.update(wide_p50)
     torch.cuda.empty_cache()
-    regex_launches, regex_p50 = regex_path(fv, op, dfa, compile_regex,
+    regex_launches, regex_p50 = regex_path(fv, op, dfa, ctr, compile_regex,
                                            kernels, args.seed, node, qps,
                                            report)
     p50.update(regex_p50)

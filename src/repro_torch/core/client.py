@@ -19,9 +19,11 @@ arbiter, §4.3), and picked requests with the same pipeline signature, table
 layout and power-of-two row bucket are coalesced into ONE stacked dispatch
 (`CompiledPipeline.run_pages_batched`): page lists are padded with the
 pool's pinned null page and each request's tail is masked by its n_valid.
-A string table's request carries its bytes (`strings=` / `lengths=`);
-string requests coalesce on (signature, row bucket, width bucket) into one
-stacked `CompiledPipeline.run_strings_batched` round.
+A string table's request carries its bytes (`strings=` / `lengths=`, and
+`row_ids=` for a partition of a larger table); string requests coalesce
+on (signature, row bucket, width bucket) into one stacked
+`CompiledPipeline.run_strings_batched` round, the width exact under a
+pre-Crypt.
 
 Memory tiering: a word table demoted to the pool's cold tier
 (`node.pool.demote_table`) dispatches with its decode descriptors, and the
@@ -272,15 +274,16 @@ class FViewNode:
                deadline_s: float | None = None) -> PendingRequest:
         """Queue a Farview verb; dispatched at the next scheduling round.
         A string table's request carries its bytes: `strings` (n, w) uint8
-        and `lengths` (n,) int32. `deadline_s` is the remaining budget:
+        and `lengths` (n,) int32; its `row_ids` (n,), one a row, key a
+        pre-Crypt's keystream. `deadline_s` is the remaining budget:
         past it the request is shed (typed `DeadlineExceededError`)
         instead of dispatched."""
         if qp.qp_id not in self._qpairs:
             raise FarviewError(f"connection qp{qp.qp_id} is closed")
         pipeline = op_ir.validate_pipeline(tuple(pipeline))
         if strings is not None or ft.str_width:
-            strings, lengths = _string_sideband(ft, strings, lengths,
-                                                row_ids)
+            strings, lengths, row_ids = _string_sideband(ft, strings,
+                                                         lengths, row_ids)
         # tiering hysteresis: every submitted verb is an access. Word tables
         # promote only after `promote_after` hits in the window (a lone cold
         # scan runs decoded in the dispatch); string tables promote at once
@@ -406,7 +409,7 @@ class FViewNode:
                 region.reconfigurations += 1
         if len(reqs) == 1 and reqs[0].strings is not None:
             req = reqs[0]
-            results = [pipe(req.strings, lengths=req.lengths,
+            results = [pipe(req.strings, req.row_ids, lengths=req.lengths,
                             device=self.device)]
         elif len(reqs) == 1:
             req = reqs[0]
@@ -473,7 +476,10 @@ class FViewNode:
         0 and are masked by n_valid. A row's length is cut to its own
         request's width, so no request consumes the padding bytes of a
         wider neighbour (the JAX node does: ROADMAP.md queue 3). Widths
-        stay exact when the key pinned them (pre-crypt keystream)."""
+        stay exact when the key pinned them (pre-crypt keystream).
+        Partitioned requests' row ids stack as (B, bucket rows), the padded
+        rows' ids 0 (their rows are masked), in int64 as the word path
+        stacks them: the pipeline wraps them to int32."""
         mats = [r.strings for r in reqs]
         bucket_n = op_ir.shape_bucket(max(m.shape[0] for m in mats))
         bucket_w = (mats[0].shape[1] if op_ir.has_crypt_pre(reqs[0].pipeline)
@@ -493,8 +499,14 @@ class FViewNode:
             ln[b, n:] = 0
         n_valid = [m.shape[0] for m in mats]
         widths = [m.shape[1] for m in mats]
+        row_ids = None
+        if reqs[0].row_ids is not None:     # homogeneous by dispatch key
+            row_ids = np.zeros((len(reqs), bucket_n), np.int64)
+            for b, (m, r) in enumerate(zip(mats, reqs)):
+                row_ids[b, : m.shape[0]] = r.row_ids     # tails masked
         return pipe.run_strings_batched(stacked, lengths, n_valid,
-                                        widths=widths, device=self.device)
+                                        widths=widths, row_ids=row_ids,
+                                        device=self.device)
 
     def _account(self, req: PendingRequest, res: PipelineResult) -> None:
         qp = req.qp
@@ -517,23 +529,25 @@ class FViewNode:
 
 def _string_sideband(ft: FTable, strings, lengths, row_ids) -> tuple:
     """A string table's request bytes, checked: (strings (n, w) uint8,
-    lengths (n,) int32) as numpy arrays."""
+    lengths (n,) int32, row_ids None or (n,) int64, one a row) as numpy
+    arrays."""
     if not ft.str_width:
         raise ValueError(f"strings= carries a string table's bytes; "
                          f"{ft.name!r} is a word table")
     if strings is None or lengths is None:
         raise ValueError(f"a request over string table {ft.name!r} carries "
                          "its bytes: strings= and lengths=")
-    if row_ids is not None:
-        raise NotImplementedError(
-            "partitioned string requests (row_ids) are not ported yet: they "
-            "come with ROADMAP.md queue 1, slice 4b")
     strings = np.asarray(strings, np.uint8)
     lengths = np.asarray(lengths, np.int32)
     if strings.ndim != 2 or lengths.shape != strings.shape[:1]:
         raise ValueError(f"strings (n, w) and lengths (n,), got "
                          f"{strings.shape} and {lengths.shape}")
-    return strings, lengths
+    if row_ids is not None:
+        row_ids = np.asarray(row_ids, np.int64)
+        if row_ids.shape != lengths.shape:
+            raise ValueError(f"row_ids hold one id a row: ({len(lengths)},) "
+                             f"ids, got {row_ids.shape}")
+    return strings, lengths, row_ids
 
 
 def load_node_state(node: FViewNode, buf: np.ndarray,

@@ -15,9 +15,11 @@ device).
 A string table's bytes do not live in the pool: each request carries them
 as a sideband, (n, w) uint8 strings and (n,) int32 lengths. Its pipeline
 holds a RegexMatch, whose DFA is compiled once when the plan is built and
-uploaded once per device; the `dfa_match` kernel returns a match mask,
-one byte a row shipped, and every later stage is skipped (a post-Crypt
-too), as in the reference.
+uploaded once per device; a pre-Crypt deciphers the bytes first (the
+byte-stream cipher `ops.crypt_bytes`, keyed by each byte's position in
+its request, or by row_id * w + col given row ids), then the `dfa_match`
+kernel returns a match mask, one byte a row shipped, and every later
+stage is skipped (a post-Crypt too), as in the reference.
 
 Entry points (each takes an optional `row_ids` for partition dispatch,
 and a JoinSmall pipeline its build as `build=(keys, vals)`):
@@ -36,7 +38,8 @@ and a JoinSmall pipeline its build as `build=(keys, vals)`):
       tiers: the operand alone picks the gather.
   pipe(strings, lengths=..., device=...)       one string request
   pipe.run_strings_batched(strings, lengths, n_valid, widths=...)
-      stacked string round: strings (B, n, w), lengths (B, n).
+      stacked string round: strings (B, n, w), lengths (B, n), and
+      row_ids (B, n) for partitioned requests.
 
 Every entry point returns lazy `PipelineResult`s: device tensors plus
 device count/byte scalars. `PipelineResult.finalize()` is the ONLY sync
@@ -49,10 +52,9 @@ The JAX pipeline indexes that narrowed work with full-schema indices,
 which clamp to other columns; the port gives the result of the JAX
 `Project` form instead (ROADMAP.md queue 3).
 
-Two string-table cases are refused at construction: a pre-decrypt (the
-byte cipher comes with ROADMAP.md queue 1, slice 4b) and a pipeline
-without RegexMatch (the JAX pipeline runs it over the raw bytes as the
-rows kind; ROADMAP.md queue 3).
+A string table's pipeline without RegexMatch is refused at construction
+(the JAX pipeline runs it over the raw bytes as the rows kind; ROADMAP.md
+queue 3).
 """
 from __future__ import annotations
 
@@ -273,10 +275,6 @@ class CompiledPipeline:
                     "string tables run RegexMatch only in the port: the JAX "
                     "pipeline runs other verbs over their raw bytes as the "
                     "rows kind, which the port refuses (ROADMAP.md queue 3)")
-            if self.crypt_pre is not None:
-                raise NotImplementedError(
-                    "Crypt(pre) over a string table is not ported yet: the "
-                    "byte cipher comes with ROADMAP.md queue 1, slice 4b")
         elif self.regex is not None:
             raise ValueError("RegexMatch runs over a string table "
                              "(str_width > 0)")
@@ -341,14 +339,10 @@ class CompiledPipeline:
         keystream and ride the packing as survivor ids. `build` is a
         JoinSmall pipeline's build table (see `_as_build`). A string
         table's rows are (n, w) uint8 bytes with (n,) int32 `lengths`,
-        uploaded through pinned memory; its mask ships n bytes and reads
-        n * w."""
+        uploaded through pinned memory (its row ids key only a
+        pre-decrypt); its mask ships n bytes and reads n * w."""
         device = resolve_device(device, "CompiledPipeline.__call__")
         if self.kind == "mask":
-            if row_ids is not None:
-                raise NotImplementedError(
-                    "partitioned string requests (row_ids) are not ported "
-                    "yet: they come with ROADMAP.md queue 1, slice 4b")
             if lengths is None:
                 raise ValueError("a string table's rows need their lengths")
             strings = _upload(rows, torch.uint8, device)
@@ -359,14 +353,15 @@ class CompiledPipeline:
                                  f"{tuple(lens.shape)}")
             n, w = strings.shape
             nv = torch.full((1,), n, dtype=torch.int32, device=device)
-            payload = self._strings_body(strings[None], lens[None], nv,
-                                         np.asarray([n]))
+            payload = self._strings_body(
+                strings[None], lens[None], nv, np.asarray([n]),
+                self._as_ids(row_ids, device, 1, n))
             return self._wrap(self._split(payload, 0, n), n * w)
         rows = torch.as_tensor(rows, dtype=torch.float32).to(device)
         n = int(rows.shape[0])
         n_valid = torch.full((1,), n, dtype=torch.int32, device=rows.device)
         payload = self._body(rows[None], n_valid,
-                             self._as_ids(row_ids, rows.device, 1),
+                             self._as_ids(row_ids, rows.device, 1, n),
                              self._as_build(build, rows.device),
                              narrowed=False)
         if self._columnar_read():
@@ -395,10 +390,10 @@ class CompiledPipeline:
             pages, tier = None, tuple(t[None] for t in tier)
         nv = torch.full((1,), int(n_valid), dtype=torch.int32,
                         device=buf.device)
-        payload = self._gather_run(buf, pages, nv,
-                                   self._as_ids(row_ids, buf.device, 1),
-                                   self._as_build(build, buf.device),
-                                   n_rows, row_words, tier, page_words)
+        payload = self._gather_run(
+            buf, pages, nv, self._as_ids(row_ids, buf.device, 1, n_rows),
+            self._as_build(build, buf.device), n_rows, row_words, tier,
+            page_words)
         return self._wrap(self._split(payload, 0, n_rows),
                           self._pages_read_bytes(n_rows, row_words)
                           if read_bytes is None else read_bytes)
@@ -428,7 +423,7 @@ class CompiledPipeline:
         b = int(nv.shape[0])
         payload = self._gather_run(
             buf, pages, _upload(nv, torch.int32, buf.device),
-            self._as_ids(row_ids, buf.device, b),
+            self._as_ids(row_ids, buf.device, b, n_rows),
             self._as_build(build, buf.device), n_rows, row_words, tier,
             page_words)
         return [self._wrap(self._split(payload, i, int(nv[i])),
@@ -437,17 +432,22 @@ class CompiledPipeline:
                 for i in range(b)]
 
     def run_strings_batched(self, strings, lengths, n_valid, *,
-                            widths=None, device=None) -> list[PipelineResult]:
+                            widths=None, row_ids=None,
+                            device=None) -> list[PipelineResult]:
         """Stacked string round: strings (B, n, w) uint8 bytes, lengths
         (B, n) int32 (numpy, host tensors — a pinned one is uploaded
-        without a copy — or tensors on `device`), n_valid (B,) host ints.
+        without a copy — or tensors on `device`), n_valid (B,) host ints,
+        row_ids None or (B, n) original-table row ids (partitioned
+        requests; they key a pre-decrypt's keystream).
 
-        One dfa_match launch serves the whole stack. Rows past a request's
-        n_valid (bucket padding) are masked out of its match mask and
-        excluded from shipped/read accounting; `widths` (each request's
-        byte width before padding) keeps the read accounting exact under
-        width bucketing. Each request's mask is cut back to its own
-        length."""
+        One byte-cipher launch (under a pre-Crypt) and one dfa_match
+        launch serve the whole stack. Rows past a request's n_valid
+        (bucket padding) are deciphered at wrong positions, then masked
+        out of its match mask and excluded from shipped/read accounting;
+        `widths` (each request's byte width before padding) keeps the read
+        accounting exact under width bucketing. Under a pre-Crypt every
+        width must be the stack's: padded columns would shift the
+        keystream. Each request's mask is cut back to its own length."""
         device = resolve_device(device,
                                 "CompiledPipeline.run_strings_batched")
         if self.kind != "mask":
@@ -459,9 +459,14 @@ class CompiledPipeline:
         b, n, w = strings.shape
         ws = (np.full((b,), w, np.int64) if widths is None
               else np.asarray(widths, np.int64))
+        if self.crypt_pre is not None and np.any(ws != w):
+            raise ValueError(f"a pre-decrypt keys the keystream by the exact "
+                             f"row width: widths {ws.tolist()} in a stack of "
+                             f"width {w}")
         payload = self._strings_body(strings, lengths,
                                      _upload(nv, torch.int32, device),
-                                     np.clip(nv, 0, n))
+                                     np.clip(nv, 0, n),
+                                     self._as_ids(row_ids, device, b, n))
         return [self._wrap(self._split(payload, i, int(nv[i])),
                            int(nv[i]) * int(ws[i]))
                 for i in range(b)]
@@ -481,13 +486,17 @@ class CompiledPipeline:
 
     # -------------------------------------------------------------- internals
     @staticmethod
-    def _as_ids(row_ids, device, b: int):
-        """(b, n) int32 ids on `device`, wrapped mod 2^32 as the
+    def _as_ids(row_ids, device, b: int, n: int):
+        """(b, n) int32 ids on `device`, one a row, wrapped mod 2^32 as the
         reference's int32 cast wraps them."""
         if row_ids is None:
             return None
-        ids = np.asarray(row_ids, np.int64).reshape(b, -1).astype(np.int32)
-        return _upload(ids, torch.int32, device)
+        ids = np.asarray(row_ids, np.int64)
+        if ids.ndim < 1 or ids.shape[-1] != n or ids.size != b * n:
+            raise ValueError(f"row_ids must hold one id a row: ({b}, {n}) "
+                             f"ids, got shape {ids.shape}")
+        return _upload(ids.reshape(b, n).astype(np.int32), torch.int32,
+                       device)
 
     def _as_build(self, build, device):
         """A JoinSmall pipeline's build operand on `device`: (keys (K,)
@@ -671,11 +680,19 @@ class CompiledPipeline:
         return out
 
     def _strings_body(self, strings: torch.Tensor, lengths: torch.Tensor,
-                      n_valid: torch.Tensor, shipped: np.ndarray) -> dict:
-        """RegexMatch over the (B, n, w) byte stack: the match mask of the
-        rows below n_valid, and a 1-byte decision per valid row (`shipped`,
-        host ints: the reference's count of valid rows). Every other
-        stage is skipped, a post-Crypt too, as in the reference."""
+                      n_valid: torch.Tensor, shipped: np.ndarray,
+                      row_ids: torch.Tensor | None) -> dict:
+        """RegexMatch over the (B, n, w) byte stack, deciphered first under
+        a pre-Crypt (into a new stack: the caller's bytes stay as they
+        are): the match mask of the rows below n_valid, and a 1-byte
+        decision per valid row (`shipped`, host ints: the reference's count
+        of valid rows). Every other stage is skipped, a post-Crypt too, as
+        in the reference."""
+        if self.crypt_pre is not None and strings.numel():
+            b, n, w = strings.shape
+            strings = kops.crypt_bytes(
+                strings.reshape(b, n * w), self.crypt_pre.key,
+                self.crypt_pre.nonce, row_ids, w).view(b, n, w)
         table, accept = self._dfa_on(strings.device)
         mask = kops.regex_match(strings, lengths, table, accept, n_valid)
         return {"mask": mask, "shipped": shipped}

@@ -44,6 +44,7 @@ _SIGNATURES = {
     },
     "ctr_crypt.cu": {
         "ctr_crypt": ([_P, _P, _P, _LL, _I, _U, _U, _U, _P], _I),
+        "ctr_crypt_bytes": ([_P, _P, _P, _LL, _I, _I, _U, _U, _U, _P], _I),
         "ctr_error_string": ([_I], ctypes.c_char_p),
     },
     "hash_group.cu": {

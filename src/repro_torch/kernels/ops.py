@@ -49,6 +49,19 @@ def crypt(data: torch.Tensor, key, nonce: int,
     return fn(data, key, nonce, idx)
 
 
+def crypt_bytes(data: torch.Tensor, key, nonce: int,
+                row_ids: torch.Tensor | None = None,
+                width: int | None = None) -> torch.Tensor:
+    """data (B, L) uint8 bytes: a (B, n, w) string stack flattened per
+    request; key two uint32 ints; optional (B, n) int32 row ids with the
+    row width w. The reference's pre-decrypt of a string table: byte i
+    XORed with the low byte of the keystream word at its position, i
+    within its request or row_id * w + col (mod 2^32) given row ids.
+    Returns a new (B, L) uint8 tensor."""
+    fn = _pick(data, _ctr.ctr_crypt_bytes, _ctr.ctr_crypt_bytes_plain)
+    return fn(data, key, nonce, row_ids, width)
+
+
 # ---------------------------------------------------------------------------
 # regex
 # ---------------------------------------------------------------------------

@@ -3,12 +3,12 @@
 Each function is the semantic ground truth of one CUDA kernel in this
 package, written in plain torch ops so it runs on the CPU and on the card
 alike. Only the functions the ported slices need are here: the
-rows kind's `eval_predicate`, `select_project`, `threefry2x32` and
-`ctr_crypt`, and the grouping's `bucket_of`, `sort_by_bucket`,
-`segment_spans`, `segmented_reduce`, `group_aggregate` and
-`group_aggregate_exact`, the join's `hash_join`, the regex verb's
-`dfa_match` and far-KV's `decode_attention`, `merge_partials` and
-`full_attention_oracle`.
+rows kind's `eval_predicate`, `select_project`, `threefry2x32`,
+`ctr_crypt` and the string tables' `ctr_crypt_bytes`, and the grouping's
+`bucket_of`, `sort_by_bucket`, `segment_spans`, `segmented_reduce`,
+`group_aggregate` and `group_aggregate_exact`, the join's `hash_join`,
+the regex verb's `dfa_match` and far-KV's `decode_attention`,
+`merge_partials` and `full_attention_oracle`.
 
 Cipher words are uint32 in the reference. torch on the CPU has no add,
 shift or compare for `torch.uint32`, so the cipher carries its words in
@@ -112,6 +112,18 @@ def threefry2x32(key: tuple[int, int], c0: torch.Tensor, c1: torch.Tensor):
     return x0, x1
 
 
+def _keystream(n: int, key: tuple[int, int], nonce: int,
+               idx: torch.Tensor | None, device) -> torch.Tensor:
+    """The keystream words (int64 holding uint32) at stream positions
+    idx (default 0..n-1), taken mod 2^32: lane `p & 1` of threefry(key,
+    p >> 1, nonce)."""
+    pos = (torch.arange(n, dtype=torch.int64, device=device)
+           if idx is None else idx.to(torch.int64) & _MASK32)
+    s0, s1 = threefry2x32(key, pos >> 1,
+                          torch.full_like(pos, int(nonce) & _MASK32))
+    return torch.where((pos & 1) == 0, s0, s1)
+
+
 def ctr_crypt(data: torch.Tensor, key: tuple[int, int], nonce: int,
               idx: torch.Tensor | None = None) -> torch.Tensor:
     """XOR data (N,) int32 words with the Threefry CTR keystream. Involutive.
@@ -119,14 +131,20 @@ def ctr_crypt(data: torch.Tensor, key: tuple[int, int], nonce: int,
     Word i is XORed with lane `p & 1` of threefry(key, p >> 1, nonce) at
     stream position p = idx[i] (default i). Positions are taken mod 2^32,
     as the reference's uint32 arithmetic takes them."""
-    n = data.shape[0]
-    pos = (torch.arange(n, dtype=torch.int64, device=data.device)
-           if idx is None else idx.to(torch.int64) & _MASK32)
-    s0, s1 = threefry2x32(key, pos >> 1,
-                          torch.full_like(pos, int(nonce) & _MASK32))
-    stream = torch.where((pos & 1) == 0, s0, s1)
+    stream = _keystream(data.shape[0], key, nonce, idx, data.device)
     out = (data.to(torch.int64) & _MASK32) ^ stream
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def ctr_crypt_bytes(data: torch.Tensor, key: tuple[int, int], nonce: int,
+                    idx: torch.Tensor | None = None) -> torch.Tensor:
+    """XOR data (N,) uint8 bytes with the low byte of the keystream word
+    at each byte's position: byte i becomes data[i] ^ (ks(p) & 0xFF), p =
+    idx[i] (default i) mod 2^32. `ctr_crypt` over the bytes widened to
+    words, cut back to their low byte, as the reference's pre-decrypt of
+    a string table computes it. Involutive."""
+    stream = _keystream(data.shape[0], key, nonce, idx, data.device)
+    return (data.to(torch.int64) ^ (stream & 0xFF)).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,10 @@ larger-than-shared-memory builds with special keys and values, and a
 warm join round flushed without a host sync; the DFA kernel at widths of
 every alignment (1..1000 bytes, a stack starting off a 16-byte boundary),
 lengths below 0, 0 and past the width, 2..256 states, zero-width rows,
-and stacked string rounds flushed without a host sync; the far-KV
+and stacked string rounds flushed without a host sync; the byte-stream
+cipher (`ctr_crypt_bytes`) at odd and even widths, with row ids past the
+uint32 wrap and from an odd byte offset, and pre-Crypt string rounds
+(stacked and partitioned) flushed without a host sync; the far-KV
 decode_attention kernel at chip_smoke's shapes (granite-3-8b's block, G =
 1 and 8, D = 64 and 256, G past a block's 32 query rows, rows whose bytes
 take scalar loads), lengths 0, 1, ragged and full, f32 and bf16 caches,
@@ -540,6 +543,143 @@ def test_string_round_never_waits_and_matches_the_cpu(card):
     assert meta_c[0] == (3000, 3000 * 64)
     for g, c in zip(mask_g, mask_c):
         assert torch.equal(g, c)
+
+
+BYTE_KEY, BYTE_NONCE = (0x0BADF00D, 0x5EED5EED), 1234
+
+
+def _byte_row_ids(rng, kind, b, n, w):
+    """(b, n) int32 row ids: none, a permutation, or ids whose row_id * w
+    (uint32) passes 2^31 and, where w > 1, 2^32 (negative ids among
+    them)."""
+    if kind == "stream":
+        return None
+    if kind == "row_ids":
+        return rng.permutation(4 * b * n)[: b * n].reshape(b, n)
+    pool = np.concatenate([c + np.arange(-n, n) for c in (
+        2**31 // w, min(2**32 // w, 2**31 - 1))] + [-1 - np.arange(n)])
+    return rng.choice(pool, (b, n)).astype(np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 4099])
+@pytest.mark.parametrize("kind", ["stream", "row_ids", "wrapping_row_ids"])
+@pytest.mark.parametrize("w", [1, 17, 40, 64])
+def test_ctr_crypt_bytes_kernel_matches_plain(card, w, kind, n):
+    """The byte-stream entry against its plain version, bitwise: odd and
+    even widths (rows starting on odd positions), row ids past the uint32
+    wrap, one launch counted; its own inverse; the same result from a
+    stack starting one byte into its buffer; the input left as it was."""
+    rng = np.random.default_rng(w * 100 + n + len(kind))
+    b = 3
+    data = torch.from_numpy(rng.integers(0, 256, (b, n * w),
+                                         dtype=np.uint8)).to(card)
+    ids = _byte_row_ids(rng, kind, b, n, w)
+    ids = None if ids is None else torch.from_numpy(
+        np.asarray(ids, np.int32)).to(card)
+    kept = data.clone()
+    before = tctr.ctr_crypt_bytes.launches
+    got = tctr.ctr_crypt_bytes(data, BYTE_KEY, BYTE_NONCE, ids, w)
+    exp = tctr.ctr_crypt_bytes_plain(data, BYTE_KEY, BYTE_NONCE, ids, w)
+    torch.cuda.synchronize()
+    assert tctr.ctr_crypt_bytes.launches == before + 1
+    assert torch.equal(got, exp)
+    assert torch.equal(data, kept)
+    assert torch.equal(tctr.ctr_crypt_bytes(got, BYTE_KEY, BYTE_NONCE, ids,
+                                            w), data)
+    buf = torch.zeros(data.numel() + 1, dtype=torch.uint8, device=card)
+    buf[1:] = data.view(-1)
+    odd = tctr.ctr_crypt_bytes(buf[1:].view(b, n * w), BYTE_KEY, BYTE_NONCE,
+                               ids, w)
+    torch.cuda.synchronize()
+    assert torch.equal(odd, exp)
+
+
+def test_ctr_crypt_bytes_kernel_refuses_what_it_does_not_take(card):
+    data = torch.zeros((2, 12), dtype=torch.uint8, device=card)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="uint8"):
+        tctr.ctr_crypt_bytes(data.int(), BYTE_KEY, BYTE_NONCE)
+    with pytest.raises(ValueError, match="width"):
+        tctr.ctr_crypt_bytes(data, BYTE_KEY, BYTE_NONCE, ids, 5)
+    with pytest.raises(ValueError, match="one id a row"):
+        tctr.ctr_crypt_bytes(data, BYTE_KEY, BYTE_NONCE, ids.cpu(), 4)
+    empty = torch.zeros((2, 0), dtype=torch.uint8, device=card)
+    before = tctr.ctr_crypt_bytes.launches
+    assert tctr.ctr_crypt_bytes(empty, BYTE_KEY, BYTE_NONCE).shape == (2, 0)
+    assert tctr.ctr_crypt_bytes.launches == before
+
+
+def test_pre_crypt_string_rounds_never_wait_and_match_the_cpu(card):
+    """Pre-Crypt regex rounds flushed under sync debug mode "error": three
+    requests of width 64 and mixed rows (one dispatch), one of width 48
+    (its own: the width is pinned), then one encrypted table in three
+    partitions with their row ids (one dispatch); one byte-cipher launch
+    and one dfa_match launch a dispatch, no word cipher; masks and byte
+    counts equal the CPU node's, the partitions' masks scattered back the
+    whole table's."""
+    pipe = (op.Crypt(BYTE_KEY, BYTE_NONCE, "pre"), op.RegexMatch("err"))
+    sizes = [(3000, 64), (2500, 64), (2100, 64), (1000, 48)]
+    reqs_in = []
+    for i, (n, w) in enumerate(sizes):
+        mat, lens = _dfa_input(i, 1, n, w)
+        enc = tctr.ctr_crypt_bytes_plain(torch.from_numpy(mat[0].reshape(
+            1, -1)), BYTE_KEY, BYTE_NONCE).numpy().reshape(n, w)
+        reqs_in.append((fv.FTable(f"s{i}", (fv.Column("bytes", "str"),),
+                                  n_rows=n, str_width=w), enc, lens[0],
+                        None))
+    n, w = 4001, 40
+    mat, lens = _dfa_input(9, 1, n, w)
+    table = tctr.ctr_crypt_bytes_plain(torch.from_numpy(mat[0].reshape(
+        1, -1)), BYTE_KEY, BYTE_NONCE).numpy().reshape(n, w)
+    parts = np.array_split(np.random.default_rng(9).permutation(n), 3)
+    part_in = [(fv.FTable(f"p{i}", (fv.Column("bytes", "str"),),
+                          n_rows=len(p), str_width=w), table[p], lens[0][p],
+                p) for i, p in enumerate(parts)]
+    results = []
+    for device in (card, torch.device("cpu")):
+        node = fv.FViewNode(8 * 2**20, n_regions=4, device=device)
+        qps = [fv.open_connection(node) for _ in range(4)]
+        got = []
+        for batch, dispatches in ((reqs_in, 2), (part_in, 1)):
+            before = (tdfa.dfa_match.launches, tctr.ctr_crypt_bytes.launches,
+                      tctr.ctr_crypt.launches, node.dispatches)
+            if device.type == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                reqs = [fv.submit_request(qp, ft, pipe, strings=m,
+                                          lengths=ln, row_ids=rid)
+                        for qp, (ft, m, ln, rid) in zip(qps, batch)]
+                node.flush()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert node.dispatches == before[3] + dispatches
+            if device.type == "cuda":
+                assert (tdfa.dfa_match.launches,
+                        tctr.ctr_crypt_bytes.launches,
+                        tctr.ctr_crypt.launches) == (
+                    before[0] + dispatches, before[1] + dispatches,
+                    before[2])
+            got += [r.wait() for r in reqs]
+        results.append(([r.mask.cpu() for r in got],
+                        [(r.shipped_bytes, r.read_bytes) for r in got]))
+    (mask_g, meta_g), (mask_c, meta_c) = results
+    assert meta_g == meta_c
+    assert meta_c[0] == (3000, 3000 * 64)
+    for g, c in zip(mask_g, mask_c):
+        assert torch.equal(g, c)
+    whole = tdfa.dfa_match_plain(
+        torch.from_numpy(mat), torch.from_numpy(lens),
+        torch.tensor([n], dtype=torch.int32),
+        *tdfa.prepare_dfa(*_regex_tables("err"), "cpu"))[0]
+    scattered = torch.zeros(n, dtype=torch.bool)
+    for m, p in zip(mask_g[len(reqs_in):], parts):
+        scattered[torch.from_numpy(p)] = m
+    assert torch.equal(scattered, whole) and 0 < int(whole.sum()) < n
+
+
+def _regex_tables(pattern):
+    from repro_torch.core.regex import compile_regex
+    return compile_regex(pattern)
 
 
 def test_flush_never_waits_for_the_card(card):

@@ -3,7 +3,8 @@ neither jax nor anything of the JAX package `repro`.
 
 Two checks: a subprocess imports `repro_torch`, runs a selection, a
 join, a GroupBy request (merged client-side), a RegexMatch over a
-string table, a far-KV decode step and a selection over a table demoted
+string table, the same over its bytes encrypted and deciphered by a
+pre-Crypt, a far-KV decode step and a selection over a table demoted
 to the cold tier (the page codec of `repro_torch/distributed/` and the
 tiered gather of `kernels/tier.py`) on the CPU and then finds no `jax`
 and no `repro` module loaded, and the tiering modules loaded; an AST scan
@@ -50,6 +51,13 @@ res = fv.farview_request(qp, sft, (op.RegexMatch("err(or)?"),),
                          strings=mat, lengths=lens)
 assert res.mask.tolist() == [True, False, True], res.mask
 import torch
+from repro_torch.kernels import ctr_crypt
+enc = ctr_crypt.ctr_crypt_bytes_plain(torch.from_numpy(mat.reshape(1, -1)),
+                                      (1, 2), 3).numpy().reshape(mat.shape)
+res = fv.farview_request(qp, sft, (op.Crypt((1, 2), 3, "pre"),
+                                   op.RegexMatch("err(or)?")),
+                         strings=enc, lengths=lens)
+assert res.mask.tolist() == [True, False, True], res.mask
 from repro_torch.core import far_kv
 eye = np.eye(8, dtype=np.float32)
 w = far_kv.block_weights_from_numpy(eye, eye[:, :4], eye[:, :4], eye, tp=2,

@@ -18,6 +18,7 @@ from repro.core.pipeline import compile_pipeline as jax_compile
 from repro.core.table import Column as JColumn
 from repro.core.table import FTable as JFTable
 from repro.core.table import string_table as jstring_table
+from repro.kernels import ref as jref
 from repro_torch.core import operators as op
 from repro_torch.core.errors import FarviewError
 from repro_torch.core.pipeline import (cache_builds, compile_pipeline,
@@ -211,13 +212,36 @@ def test_compile_cache_builds_once_per_signature():
 JOIN = op.JoinSmall("c0", "build", "k", ("v",))
 
 
-@pytest.mark.parametrize("pipeline,slice_no", [
-    ((op.Crypt(KEY_PRE, 3, "pre"), op.RegexMatch("ab+")), "slice 4b"),
-], ids=["pre_crypt_regex"])
-def test_later_slices_are_refused_at_construction(pipeline, slice_no):
-    schema = FTable("s", (Column("bytes", "str"),), str_width=16)
-    with pytest.raises(NotImplementedError, match=slice_no):
-        CompiledPipeline(schema, pipeline)
+def test_pre_crypt_regex_builds_and_matches_jax():
+    """A pre-Crypt over a string table builds and runs as the JAX pipeline
+    does: the bytes are deciphered before the DFA, solo and with row
+    ids."""
+    pipeline = (op.Crypt(KEY_PRE, 3, "pre"), op.RegexMatch("ab+"))
+    jpipeline = (jop.Crypt(KEY_PRE, 3, "pre"), jop.RegexMatch("ab+"))
+    strs = [b"xxabbb", b"ab", b"a", b"b", b"zzzzzzzzab", b"", b"ba"] * 3
+    jft, mat, lens = jstring_table("s", strs, 16)
+    mat = np.asarray(mat)
+    jp = jax_compile(jft, jpipeline)
+    tp = CompiledPipeline(FTable("s", (Column("bytes", "str"),),
+                                 str_width=16), pipeline)
+    ids = np.random.default_rng(3).permutation(100)[: len(strs)]
+    for row_ids in (None, ids):
+        # the stored bytes: the JAX ref cipher over the widened clear
+        # bytes at their positions (i, or row_id * 16 + col), cut to uint8
+        pos = (np.arange(mat.size) if row_ids is None else
+               (row_ids[:, None] * 16 + np.arange(16)).reshape(-1))
+        enc = np.asarray(jref.ctr_crypt(
+            jnp.asarray(mat.reshape(-1).astype(np.uint32)),
+            jnp.asarray(np.asarray(KEY_PRE, np.uint32)), 3,
+            idx=jnp.asarray(pos.astype(np.uint32)))).astype(
+                np.uint8).reshape(mat.shape)
+        exp = jp(jnp.asarray(enc), jnp.asarray(lens),
+                 row_ids=row_ids).finalize()
+        got = tp(enc, row_ids, lengths=lens, device="cpu").finalize()
+        assert got.mask.tolist() == np.asarray(exp.mask).tolist() == [
+            b"ab" in s for s in strs]
+        assert (got.shipped_bytes, got.read_bytes) == (
+            exp.shipped_bytes, exp.read_bytes) == (21, 21 * 16)
 
 
 def test_join_with_grouping_is_refused_as_in_jax():

@@ -12,7 +12,8 @@
   (one dispatch; mask, shipped = rows, read = rows x width), a post-Crypt
   (ignored by the regex branch in both), and a round mixed with a word
   verb;
-- both pipelines' string entry points, and the port's refusals.
+- both pipelines' string entry points (row ids too), and the port's
+  refusals.
 
 The strings are made from numpy seeds; widths <= 128, <= 2048 strings.
 """
@@ -258,11 +259,20 @@ def test_pipeline_entry_points_match_jax(post):
 
 
 def test_string_entry_points_refuse_what_is_not_ported():
-    schema, _ = _schemas(16)
+    """Row ids on a string request run as in the JAX pipeline (they key
+    only a pre-Crypt, so the mask is the one without them); a request
+    without lengths, the pool entry points and a call without a card
+    are refused."""
+    schema, jschema = _schemas(16)
     pipe = CompiledPipeline(schema, (op.RegexMatch("err"),))
     mat, lens = _strings(0, 8, 16)
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        pipe(mat, np.arange(8), lengths=lens, device="cpu")
+    got = pipe(mat, np.arange(8) * 3, lengths=lens, device="cpu").finalize()
+    exp = jax_compile(jschema, (jop.RegexMatch("err"),))(
+        jnp.asarray(mat), jnp.asarray(lens), row_ids=np.arange(8) * 3)
+    assert got.mask.tolist() == np.asarray(exp.mask).tolist() == _python(
+        "err", mat, lens)
+    assert (got.shipped_bytes, got.read_bytes, got.sel_ids) == (
+        exp.shipped_bytes, exp.read_bytes, None) == (8, 128, None)
     with pytest.raises(ValueError, match="lengths"):
         pipe(mat, device="cpu")
     with pytest.raises(ValueError, match="pool"):
@@ -411,24 +421,42 @@ def test_stacked_round_never_consumes_a_neighbours_padding():
 
 
 def test_submit_checks_the_string_sideband():
+    """The sideband's checks, and the row ids and pre-Crypt it carries
+    run as on the JAX node (same masks and bytes)."""
     node = fv.FViewNode(CAPACITY, n_regions=2, device="cpu")
     qp = fv.open_connection(node)
+    jnode = jfv.FViewNode(CAPACITY, n_regions=2)
+    jqp = jfv.open_connection(jnode)
     (jft, mat, lens), _ = _requests(0, 8, 16)
     sft = fv.FTable("s", (fv.Column("bytes", "str"),), 8, str_width=16)
     word = fv.alloc_table_mem(qp, fv.FTable("w", (fv.Column("a"),), 8))
-    rx = (op.RegexMatch("err"),)
+    rx, jrx = (op.RegexMatch("err"),), (jop.RegexMatch("err"),)
     with pytest.raises(ValueError, match="word table"):
         fv.submit_request(qp, word, rx, strings=mat, lengths=lens)
     with pytest.raises(ValueError, match="strings= and lengths="):
         fv.submit_request(qp, sft, rx)
     with pytest.raises(ValueError, match="lengths"):
         fv.submit_request(qp, sft, rx, strings=mat, lengths=lens[:3])
-    with pytest.raises(NotImplementedError, match="slice 4b"):
+    with pytest.raises(ValueError, match="one id a row"):
         fv.submit_request(qp, sft, rx, strings=mat, lengths=lens,
-                          row_ids=np.arange(8))
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        fv.farview_request(qp, sft, (op.Crypt((1, 2), 3, "pre"),) + rx,
-                           strings=mat, lengths=lens)
+                          row_ids=np.arange(7))
+    pend = fv.submit_request(qp, sft, rx, strings=mat, lengths=lens,
+                             row_ids=np.arange(8) + 40)
+    jpend = jfv.submit_request(jqp, jft, jrx, strings=mat, lengths=lens,
+                               row_ids=np.arange(8) + 40)
+    node.flush()
+    jnode.flush()
+    assert pend.wait().mask.tolist() == np.asarray(
+        jpend.wait().mask).tolist() == _python("err", mat, lens)
+    # the same bytes read as ciphertext under a pre-Crypt: both packages
+    # decipher them alike
+    pre = (op.Crypt((1, 2), 3, "pre"),) + rx
+    res = fv.farview_request(qp, sft, pre, strings=mat, lengths=lens)
+    jres = jfv.farview_request(jqp, jft, (jop.Crypt((1, 2), 3, "pre"),) + jrx,
+                               strings=mat, lengths=lens)
+    assert res.mask.tolist() == np.asarray(jres.mask).tolist()
+    assert (res.shipped_bytes, res.read_bytes) == (
+        jres.shipped_bytes, jres.read_bytes) == (8, 128)
     res = fv.farview_request(qp, sft, rx, strings=mat, lengths=lens)
     assert res.mask.tolist() == _python("err", mat, lens)
     assert (res.shipped_bytes, res.read_bytes) == (8, 128)
